@@ -1,0 +1,157 @@
+"""PyTorch port, ops/raycast.py: ray projection, the exact window update
+and recentering, held bit-equal to the JAX package on the same seeded
+numpy inputs (integer and int8 outputs: tolerance 0)."""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from micro_quad_slam_tpu.ops import raycast as jr
+from micro_quad_slam_tpu.utils.config import MapConfig, TofConfig
+from micro_quad_slam_tpu_torch.ops import raycast as tr
+
+torch.set_num_threads(2)
+
+GEOM = tr.DEFAULT_GEOM
+CFG = MapConfig()
+T_ = torch.from_numpy
+
+
+def _poses(seed, n):
+    """Poses across the grid, a few outside it, and a few non-finite."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-26, 26, n).astype(np.float32)
+    y = rng.uniform(-26, 26, n).astype(np.float32)
+    yaw = rng.uniform(-180, 180, n).astype(np.float32)
+    ox = rng.uniform(-2, 2, n).astype(np.float32)
+    oy = rng.uniform(-2, 2, n).astype(np.float32)
+    x[:3] = [np.nan, np.inf, 3e10]
+    yaw[3] = np.nan
+    ox[4] = np.nan
+    beams = rng.uniform(0.0, 4.3, (n, 4, 8)).astype(np.float32)
+    beams[rng.random(beams.shape) < 0.1] = np.nan
+    en = rng.random(n) > 0.15
+    return beams, x, y, yaw, ox, oy, en
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_make_rays_matches_jax(seed):
+    beams, x, y, yaw, ox, oy, en = _poses(seed, 96)
+    want = jax.jit(jax.vmap(lambda *a: jr.make_rays(*a, CFG)))(
+        beams, x, y, yaw, ox, oy, en)
+    got = tr.make_rays(T_(beams), T_(x), T_(y), T_(yaw), T_(ox), T_(oy),
+                       T_(en), CFG)
+    assert np.asarray(want["valid"]).sum() > 1000
+    for k in ("ex", "ey", "end_delta", "valid", "pcx", "pcy"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_world_to_cell_rounds_half_even_and_saturates_like_xla():
+    v = np.array([0.25, 0.35, -0.25, -0.05, 0.05, np.nan, np.inf, -np.inf,
+                  3e10, -3e10], np.float32)
+    z = np.zeros_like(v)
+    cj = jr.world_to_cell(jnp.asarray(v), jnp.asarray(v), z, z, 0.1)
+    ct = tr.world_to_cell(T_(v), T_(v), T_(z), T_(z), 0.1)
+    for a, b in zip(cj, ct):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert ct[0][0] == 252 and ct[0][2] == 248   # 2.5 -> 2, -2.5 -> -2
+
+
+def _random_case(seed, B=3):
+    """test_pallas.py's random window case: full-range grids, beams up to
+    4.2 m with NaNs, poses anywhere in +/-20 m, some quads disabled."""
+    rng = np.random.default_rng(seed)
+    padded = np.zeros((B, GEOM.prows, GEOM.pcols), np.int8)
+    padded[:, GEOM.pad:GEOM.pad + 500, GEOM.pad:GEOM.pad + 500] = (
+        rng.integers(-80, 81, size=(B, 500, 500)).astype(np.int8))
+    beams = rng.uniform(0.03, 4.2, size=(B, 4, 8)).astype(np.float32)
+    beams[rng.random((B, 4, 8)) < 0.1] = np.nan
+    xs = rng.uniform(-20, 20, B).astype(np.float32)
+    ys = rng.uniform(-20, 20, B).astype(np.float32)
+    yaws = rng.uniform(-180, 180, B).astype(np.float32)
+    en = rng.random(B) > 0.2
+    return padded, beams, xs, ys, yaws, en
+
+
+def _near_saturation_case():
+    """test_pallas.py's ordering case: cells at the clamp bounds, short
+    beams, so the per-step clamp order decides the result."""
+    rng = np.random.default_rng(9)
+    B = 2
+    padded = np.zeros((B, GEOM.prows, GEOM.pcols), np.int8)
+    padded[:, GEOM.pad:GEOM.pad + 500, GEOM.pad:GEOM.pad + 500] = rng.choice(
+        np.array([-80, -79, 78, 79, 80], np.int8), size=(B, 500, 500))
+    beams = rng.uniform(0.1, 1.2, size=(B, 4, 8)).astype(np.float32)
+    z = np.zeros(B, np.float32)
+    return padded, beams, z, z, z, np.ones(B, bool)
+
+
+# one jitted JAX function for every case (jit only wraps here; it traces
+# at the first call)
+_jax_apply_scan = jax.jit(jax.vmap(
+    lambda g, b, x, y, w, e: jr.apply_scan_to_grid(
+        g, b, x, y, w, np.float32(0), np.float32(0), e, CFG)))
+
+
+@pytest.mark.parametrize("case", ["random0", "random1", "random2",
+                                  "near_saturation"])
+def test_apply_scan_to_grid_matches_jax(case):
+    if case == "near_saturation":
+        padded, beams, xs, ys, yaws, en = _near_saturation_case()
+    else:
+        padded, beams, xs, ys, yaws, en = _random_case(int(case[-1]))
+    z = np.zeros(len(xs), np.float32)
+    want = _jax_apply_scan(padded, beams, xs, ys, yaws, en)
+    got = tr.apply_scan_to_grid(T_(padded), T_(beams), T_(xs), T_(ys),
+                                T_(yaws), T_(z), T_(z), T_(en), CFG)
+    want = np.asarray(want)
+    assert (want != padded).sum() > 100            # the scans did land
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_recenter_decide_and_shift_origin_match_jax():
+    rng = np.random.default_rng(5)
+    n = 64
+    ox = rng.uniform(-30, 30, n).astype(np.float32)
+    oy = rng.uniform(-30, 30, n).astype(np.float32)
+    x = ox + rng.uniform(-40, 40, n).astype(np.float32)
+    y = oy + rng.uniform(-20, 20, n).astype(np.float32)
+    ok = rng.random(n) > 0.2
+    ox[0] = np.nan                                  # before map init
+    sj = jr.recenter_decide(jnp.asarray(ox), jnp.asarray(oy), jnp.asarray(x),
+                            jnp.asarray(y), jnp.asarray(ok), CFG)
+    st = tr.recenter_decide(T_(ox), T_(oy), T_(x), T_(y), T_(ok), CFG)
+    for a, b in zip(sj, st):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert st[2].sum() > 10 and st[0].abs().max() == 125   # clamped shifts
+    res = np.float32(CFG.res_m)
+    oj = jr.shift_origin(jnp.asarray(ox), sj[0], res)
+    ot = tr.shift_origin(T_(ox), st[0], res)
+    np.testing.assert_array_equal(ot.numpy().view(np.uint32),
+                                  np.asarray(oj).view(np.uint32))
+
+
+def test_recenter_apply_matches_jax():
+    rng = np.random.default_rng(6)
+    B = 5
+    g = np.zeros((B, GEOM.prows, GEOM.pcols), np.int8)
+    g[:, GEOM.pad:GEOM.pad + 500, GEOM.pad:GEOM.pad + 500] = rng.integers(
+        -80, 81, (B, 500, 500)).astype(np.int8)
+    sx = np.array([0, 3, -125, 125, -7], np.int32)
+    sy = np.array([0, -2, 40, -125, 499], np.int32)
+    want = jax.jit(jax.vmap(lambda a, b, c: jr.recenter_apply(a, b, c, CFG)))(
+        g, sx, sy)
+    got = tr.recenter_apply(T_(g), T_(sx), T_(sy), CFG)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got[0].numpy(), g[0])     # (0, 0) no-op
+
+
+def test_logical_and_new_padded_grid():
+    g = tr.new_padded_grid(GEOM, (2,))
+    assert g.shape == (2, GEOM.prows, GEOM.pcols) and g.dtype == torch.int8
+    assert tr.logical_grid(g).shape == (2, 500, 500)
+    assert tr.GridGeom.from_map(CFG) == GEOM
+    assert TofConfig().max_range_m / CFG.res_m < GEOM.win_r
