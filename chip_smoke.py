@@ -14,12 +14,18 @@ the CPU.  Phases:
   3. kernel == plain torch on the card, bit for bit (grid, origins, used,
      kf_flags, filt), on random flights with recenters, a saturating
      endpoint and a recenter inside a run of gated frames;
-  4. kernel == the golden C model (numpy) on a hover and a recentering
-     flight;
+  4. kernel == the golden C model on a hover, a recentering flight and
+     very short beams (the model's grids are stored with the flights in
+     micro_quad_slam_tpu_torch/testdata);
   5. resume: a replay split at T/2 equals the unbroken one;
   6. the bench workload (bench.py's flight, B=1024 x T=256): end-to-end
      frames/s of the kernel path and of the plain torch path, the grid
-     checksum, and the kernel's own time against its plain version.
+     checksum, the schedule's own seconds, the device's busy time in one
+     profiled replay (torch.profiler) and its idle share of the best
+     end-to-end time, and the kernel's own time against its plain version.
+
+It imports the port and numpy only: the inputs and reference results are
+committed files of the port.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero on any failure, without a
@@ -37,11 +43,11 @@ import numpy as np
 import torch
 
 import micro_quad_slam_tpu_torch as port
-from micro_quad_slam_tpu.golden import golden_replay_mapping
-from micro_quad_slam_tpu.sim import synth_room_scanlog
-from micro_quad_slam_tpu.utils.config import UL_PROFILE
+from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+
+UL_PROFILE = port.UL_PROFILE
 
 CHECKSUM_REF = -239317572   # the JAX package's bench line (kernel=residentx)
 KERNEL_SOURCE = "micro_quad_slam_tpu_torch/csrc/replay_exact.cu"
@@ -84,22 +90,10 @@ def assert_same(a, b, what: str) -> None:
 
 # ---------------------------------------------------------------- inputs
 
-def stack(logs) -> dict:
-    arrs = [port.scanlog_to_arrays(lg) for lg in logs]
-    return {k: np.stack([a[k] for a in arrs]) for k in arrs[0]}
-
-
-def random_flights(B: int = 8, T: int = 64) -> dict:
-    """Seeded flights with noise and dropouts; quad 1 drifts 40 m so that it
-    recenters, the last one never leaves the ground."""
-    logs = [synth_room_scanlog(n_frames=T, seed=s, noise_mm=5.0,
-                               dropout_p=0.05, path=("circle", "hover")[s % 2])
-            for s in range(B - 1)]
-    logs.append(synth_room_scanlog(n_frames=T, seed=99, state=1))
-    f = stack(logs)
-    f["x_m"][1] = np.linspace(0.0, 34.0, T, dtype=np.float32)
-    f["y_m"][1] = np.linspace(0.0, -21.0, T, dtype=np.float32)
-    return f
+def random_flights() -> dict:
+    """8 x 64 seeded flights with noise and dropouts; flight 1 drifts 40 m
+    so that it recenters, the last one never leaves the ground."""
+    return testdata.load("random_flights")[0]
 
 
 def _const_frames(grid_mm, x) -> dict:
@@ -136,43 +130,10 @@ def recenter_in_gated_run() -> dict:
 
 
 def short_beams() -> dict:
-    """Every zone at 51 mm (quad 0) or 53 mm (quad 1): most rays of a scan
-    end in the pose cell, which swings past the whole clamp range in one
-    scan."""
-    B, T = 2, 3
-    grid_mm = np.full((B, T, 4, 8, 8), 51, np.uint16)
-    grid_mm[1] = 53
-    f = _const_frames(grid_mm, np.zeros((B, T), np.float32))
-    f["yaw_deg"][:] = 45.0
-    return f
-
-
-class FramesLog:
-    """One flight of a frames dict, seen as a scanlog by the golden model."""
-
-    def __init__(self, frames: dict, b: int):
-        for k, v in frames.items():
-            setattr(self, k, v[b])
-
-    def __len__(self):
-        return self.x_m.shape[0]
-
-
-def bench_frames(B: int = 1024, T: int = 256) -> dict:
-    """bench.py's replay workload: one synthetic hover flight replicated
-    with per-flight pose jitter (rng seed 1)."""
-    base = port.scanlog_to_arrays(
-        synth_room_scanlog(n_frames=T, seed=0, path="hover",
-                           yaw_rate_dps=20.0, noise_mm=5.0))
-    rng = np.random.default_rng(1)
-    frames = {k: np.broadcast_to(v, (B,) + v.shape).copy()
-              for k, v in base.items()}
-    frames["x_m"] = frames["x_m"] + rng.normal(0, 0.3, (B, 1)).astype(np.float32)
-    frames["y_m"] = frames["y_m"] + rng.normal(0, 0.3, (B, 1)).astype(np.float32)
-    frames["yaw_deg"] = np.mod(
-        frames["yaw_deg"] + rng.uniform(-180, 180, (B, 1)).astype(np.float32)
-        + 180.0, 360.0) - 180.0
-    return frames
+    """Every zone at 51 mm (flight 0) or 53 mm (flight 1): most rays of a
+    scan end in the pose cell, which swings past the whole clamp range in
+    one scan."""
+    return testdata.load("golden_short_beams")[0]
 
 
 # ---------------------------------------------------------------- phases
@@ -221,35 +182,27 @@ def phase_kernel_vs_plain(device) -> None:
         launches=launches)
 
 
-def golden_logs():
-    short = short_beams()
-    hover = synth_room_scanlog(n_frames=32, room=(-2.0, -2.0, 2.0, 2.0),
-                               path="hover", yaw_rate_dps=20.0, noise_mm=6.0,
-                               dropout_p=0.05, seed=11)
-    line = synth_room_scanlog(n_frames=40, room=(-3.0, -3.0, 40.0, 3.0),
-                              path="line", path_radius_m=18.0, seed=13,
-                              noise_mm=4.0)
-    return {"hover": hover, "line_recenter": line,
-            "short_beams_51mm": FramesLog(short, 0),
-            "short_beams_53mm": FramesLog(short, 1)}
+GOLDEN = ("golden_hover", "golden_line_recenter", "golden_short_beams")
 
 
 def phase_golden(device) -> None:
-    logs = golden_logs()
-    for name, log in logs.items():
-        f = {k: v[None] for k, v in port.scanlog_to_arrays(log).items()}
-        st, outs = replay(f, device, "residentx")
-        mapper, used = golden_replay_mapping(log)
-        grid = port.logical_grid(st.grid[0]).cpu().numpy()
-        if not np.array_equal(grid, mapper.grid):
-            raise AssertionError(f"golden {name}: grid differs in "
-                                 f"{int((grid != mapper.grid).sum())} cells")
-        if not np.array_equal(outs["used"][0].cpu().numpy(), used):
-            raise AssertionError(f"golden {name}: used differs")
-        if name == "line_recenter":
-            check(mapper.recentered and bool(outs["kf_flags"].any()),
-                  "golden line_recenter: no recenter")
-    say("golden", flights=list(logs), bit_equal=True)
+    """Against the golden C model's grids and masks, stored with the
+    flights in micro_quad_slam_tpu_torch/testdata."""
+    for name in GOLDEN:
+        frames, golden = testdata.load(name)
+        st, outs = replay(frames, device, "residentx")
+        grid = port.logical_grid(st.grid).cpu().numpy()
+        if not np.array_equal(grid, golden["grid"]):
+            raise AssertionError(f"{name}: grid differs in "
+                                 f"{int((grid != golden['grid']).sum())} cells")
+        if not np.array_equal(outs["used"].cpu().numpy(), golden["used"]):
+            raise AssertionError(f"{name}: used differs")
+        recentered = outs["kf_flags"].cpu().numpy().any(axis=1)
+        check(np.array_equal(recentered, golden["recentered"]),
+              f"{name}: recenters differ")
+    check(bool(testdata.load("golden_line_recenter")[1]["recentered"].all()),
+          "golden_line_recenter: no recenter")
+    say("golden", flights=list(GOLDEN), bit_equal=True)
 
 
 def phase_resume(device) -> None:
@@ -296,17 +249,55 @@ def _time_kernel(grids, sched, fn, reps: int) -> float:
     return total / reps
 
 
+def _time_schedule(frames, reps: int) -> list:
+    """Seconds of the schedule alone (the host-driven carry over T and the
+    ray words), after one warm-up."""
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        rx.schedule(frames, UL_PROFILE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times[1:]
+
+
+def _device_busy(frames) -> dict:
+    """One end-to-end residentx replay under torch.profiler: the summed
+    device time of every kernel, copy and fill it ran, their count, and
+    the wall time of the profiled run.  busy_ms is None when the profiler
+    saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        port.replay_mapping_batched(frames, UL_PROFILE, kernel="residentx")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0) for e in events)
+    return {"busy_ms": us / 1e3 if us > 0 else None,
+            "device_ops": sum(e.count for e in events),
+            "profiled_wall_s": wall}
+
+
 def phase_bench(device, smi: str, B: int = 1024, T: int = 256,
                 reps: int = 3) -> dict:
-    frames = port.frames_to_torch(bench_frames(B, T), device)
+    frames = port.frames_to_torch(testdata.bench_frames(B), device)
+    check(frames["x_m"].shape == (B, T), "bench frames")
     torch.cuda.synchronize()
 
     rx.replay_exact.launches = 0          # count the main path's run only
     times_k, st_k, outs_k = _time_replay(frames, "residentx", reps)
     launches = rx.replay_exact.launches
     metrics = port.batch_metrics(outs_k)
+    sched_s = _time_schedule(frames, reps)
+    busy = _device_busy(frames)
     times_p, st_p, outs_p = _time_replay(frames, "xla", reps)
     dt_k, dt_p = min(times_k), min(times_p)
+    idle = None if busy["busy_ms"] is None else 1 - busy["busy_ms"] / (dt_k * 1e3)
 
     ck, cp = checksum(st_k.grid), checksum(st_p.grid)
     used, total = int(metrics["frames_used"]), int(metrics["frames_total"])
@@ -321,8 +312,11 @@ def phase_bench(device, smi: str, B: int = 1024, T: int = 256,
         frames_used=used, frames_total=total,
         recenters=int(metrics["recenters"]),
         plain_value=B * T / dt_p, plain_kernel="xla",
-        rep_seconds=times_k, plain_rep_seconds=times_p, B=B, T=T, reps=reps,
-        card=smi)
+        rep_seconds=times_k, plain_rep_seconds=times_p,
+        schedule_seconds=sched_s, device_busy_ms=busy["busy_ms"],
+        device_ops=busy["device_ops"],
+        profiled_wall_s=busy["profiled_wall_s"], device_idle_share=idle,
+        B=B, T=T, reps=reps, card=smi)
 
     # the kernel alone against its plain version, on the bench schedule
     sched = rx.schedule(frames, UL_PROFILE)[0]

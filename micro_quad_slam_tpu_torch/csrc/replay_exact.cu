@@ -35,7 +35,7 @@
 //     __syncthreads() between rays keeps the reference order exact;
 //   * stages the frame's schedule words in shared memory with one load;
 //   * does the rare recenter with the whole block through a per-quad
-//     scratch copy of the grid.
+//     scratch copy of the grid (allocated only for replays that recenter).
 // Gating makes an out-of-grid walk impossible: a ray is valid only when
 // its pose cell and its endpoint cell lie in the logical grid, and a walk
 // stays in their bounding box.  The kernel does integer work only; the
@@ -99,7 +99,7 @@ replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
   __shared__ int32_t w[kWords];
   const long long plane = static_cast<long long>(geo.prows) * geo.pcols;
   int8_t* g = grids + blockIdx.x * plane;
-  int8_t* tmp = scratch + blockIdx.x * plane;
+  int8_t* tmp = scratch ? scratch + blockIdx.x * plane : nullptr;
   const int32_t* s = sched + static_cast<long long>(blockIdx.x) * T * kWords;
 
   for (int t = 0; t < T; ++t) {
@@ -138,7 +138,8 @@ replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
 }  // namespace
 
 // grids int8 [B, prows, pcols] (updated in place), sched int32 [B, T, words],
-// scratch int8 [B, prows, pcols].  Launches on `stream` and returns
+// scratch int8 [B, prows, pcols], read only on frames with do set, so it
+// may be null when no frame recenters.  Launches on `stream` and returns
 // cudaGetLastError(); it does not synchronise.
 extern "C" int mqs_replay_exact(void* grids, const void* sched, void* scratch,
                                 int B, int T, int words, int prows, int pcols,

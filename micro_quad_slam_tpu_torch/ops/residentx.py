@@ -196,12 +196,17 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
     fn = _build.load_library("replay_exact").mqs_replay_exact
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    scratch = torch.empty_like(grids)   # recenter staging, one grid per quad
+    # recenter staging, one grid per quad; most replays never recenter
+    # (the kernel reads it only on a recentering frame), so it costs a
+    # host sync to spare another copy of the grids
+    scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
+               else None)
     m = cfg.map
     with torch.cuda.device(grids.device):
         stream = torch.cuda.current_stream(grids.device).cuda_stream
         err = fn(
-            grids.data_ptr(), sched.data_ptr(), scratch.data_ptr(),
+            grids.data_ptr(), sched.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
             geom.height, m.lo_min, m.lo_max, m.lo_free_dec, stream)
     if err != 0:
@@ -223,7 +228,6 @@ def replay_residentx(frames: dict, cfg: PipelineConfig,
     from micro_quad_slam_tpu_torch.replay.mapping import (
         MappingState, check_replay_inputs)
 
-    check_supported(cfg, geom)
     check_replay_inputs(frames, state0)
     dev = frames["x_m"].device
     B = frames["x_m"].shape[0]

@@ -240,16 +240,19 @@ def check_replay_inputs(frames: dict, state0) -> None:
             f"must continue the same batch)")
 
 
-def _replay_batched(frames: dict, cfg: PipelineConfig, geom: GridGeom,
-                    kernel: str = "xla", state0=None):
-    """frames: dict of [B, T, ...] tensors -> (MappingState [B], outs
-    [B, T]).
+def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
+                           geom: GridGeom = DEFAULT_GEOM,
+                           kernel: str = "xla", state0=None):
+    """Batched replay: frames dict of [B, T, ...] tensors (see
+    frames_to_torch), all on one device -> (MappingState [B], outs [B, T]).
+    Every exact kernel name gives grids bit-equal to the reference;
+    "residentx" (and its aliases) runs the whole replay through the exact
+    Hopper kernel on a CUDA device.
 
     state0 resumes a previous replay: pass the MappingState from an
     earlier call (or one carried over from the JAX package with
     mapping_state_from_numpy) and the continuation is bit-identical to
     replaying the concatenated frames in one call."""
-    check_replay_inputs(frames, state0)
     if kernel in EXACT_KERNELS:
         from micro_quad_slam_tpu_torch.ops.residentx import replay_residentx
         return replay_residentx(frames, cfg, geom, state0=state0)
@@ -261,6 +264,7 @@ def _replay_batched(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     if kernel != "xla":
         raise ValueError(f"unknown kernel {kernel!r}")
 
+    check_replay_inputs(frames, state0)
     B, T = frames["x_m"].shape
     # beams for every (flight, frame) at once, outside the time loop
     beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
@@ -276,26 +280,13 @@ def _replay_batched(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     return state, outs
 
 
-def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
-                           geom: GridGeom = DEFAULT_GEOM,
-                           kernel: str = "xla", state0=None):
-    """Batched replay: frames dict of [B, T, ...] tensors (see
-    frames_to_torch), all on one device.  Every exact kernel name gives
-    grids bit-equal to the reference; "residentx" (and its aliases) runs
-    the whole replay through the exact Hopper kernel on a CUDA device.
-
-    state0: resume from a prior replay's MappingState; the continuation
-    bit-matches an unbroken replay."""
-    return _replay_batched(frames, cfg, geom, kernel, state0)
-
-
 def replay_mapping(frames: dict, cfg: PipelineConfig = UL_PROFILE,
                    geom: GridGeom = DEFAULT_GEOM):
     """Replay one flight: frames dict of [T, ...] tensors.
 
     Returns (MappingState without the batch dim, outs of [T, ...])."""
     frames_b = {k: v[None] for k, v in frames.items()}
-    state, outs = _replay_batched(frames_b, cfg, geom)
+    state, outs = replay_mapping_batched(frames_b, cfg, geom)
     state = MappingState(*(v[0] for v in state))
     outs = {k: v[0] for k, v in outs.items()}
     return state, outs
