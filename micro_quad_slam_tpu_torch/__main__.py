@@ -1,10 +1,12 @@
 """python -m micro_quad_slam_tpu_torch: command line of the PyTorch port.
 
   python -m micro_quad_slam_tpu_torch replay --log scanlog.bin [more.bin ...]
-      [--kernel xla|residentx] [--profile ul|cl] [--device cuda] [--out map.npy]
+      [--kernel xla|residentx|cone|hybrid|conex|hybridx|resident_cone]
+      [--profile ul|cl] [--device cuda|cpu] [--out map.npy]
 
 The counterpart of `mqs replay` (micro_quad_slam_tpu/cli.py) for scanlog
-input; it prints the same per-flight summary line.
+input; it prints the same per-flight summary line.  It runs on the CUDA
+device; without one it exits with status 2 unless given --device cpu.
 """
 
 from __future__ import annotations
@@ -16,8 +18,12 @@ import numpy as np
 import torch
 
 
+KERNELS = ("xla", "residentx", "cone", "hybrid", "conex", "hybridx",
+           "resident_cone")
+
+
 def _profile(name: str):
-    from micro_quad_slam_tpu.utils.config import CL_PROFILE, UL_PROFILE
+    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
     return CL_PROFILE if name == "cl" else UL_PROFILE
 
 
@@ -28,7 +34,7 @@ def _stack_logs(paths):
     skips: a NaN pose fails both map init and the pose_good gate, and an
     all-zero ToF grid has no valid beams, so each flight's map is
     bit-identical to its solo replay.  Returns (frames, true lengths)."""
-    from micro_quad_slam_tpu.formats.scanlog import read_scanlog
+    from micro_quad_slam_tpu_torch.formats.scanlog import read_scanlog
     from micro_quad_slam_tpu_torch.replay.mapping import scanlog_to_arrays
 
     arrs = [scanlog_to_arrays(read_scanlog(p)) for p in paths]
@@ -57,9 +63,14 @@ def cmd_replay(args) -> int:
     from micro_quad_slam_tpu_torch.replay.mapping import (
         frames_to_torch, replay_mapping_batched)
 
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device found; pass --device cpu to replay on "
+              "the CPU", file=sys.stderr)
+        return 2
     frames, lens = _stack_logs(args.log)
     state, outs = replay_mapping_batched(
-        frames_to_torch(frames, torch.device(args.device)),
+        frames_to_torch(frames, device),
         _profile(args.profile), kernel=args.kernel)
     B = len(lens)
     grids = logical_grid(state.grid).cpu().numpy()
@@ -90,14 +101,18 @@ def main(argv=None) -> int:
                          "frames, bit-identical per log to a solo replay)")
     pr.add_argument("--out", help="write each flight's logical grid as .npy")
     pr.add_argument("--profile", default="ul", choices=("ul", "cl"))
-    pr.add_argument("--kernel", default="xla", choices=("xla", "residentx"),
+    pr.add_argument("--kernel", default="xla", choices=KERNELS,
                     help="xla: per-frame plain torch path; residentx: the "
-                         "whole replay through the exact CUDA kernel on a "
-                         "CUDA device (plain torch on the CPU); both are "
-                         "bit-exact reference semantics")
-    pr.add_argument("--device",
-                    default="cuda" if torch.cuda.is_available() else "cpu",
-                    help="torch device (default: cuda when available)")
+                         "whole replay through the exact CUDA kernel (both "
+                         "bit-exact reference semantics); cone/hybrid: the "
+                         "dense production modes, per frame in plain torch; "
+                         "conex/resident_cone (cone) and hybridx (hybrid): "
+                         "the whole replay through the cone CUDA kernel.  "
+                         "On --device cpu every kernel runs its plain torch "
+                         "version")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; without a CUDA "
+                         "device pass --device cpu)")
     pr.set_defaults(fn=cmd_replay)
     args = p.parse_args(argv)
     return args.fn(args)

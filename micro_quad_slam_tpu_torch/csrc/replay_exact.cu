@@ -40,11 +40,14 @@
 // its pose cell and its endpoint cell lie in the logical grid, and a walk
 // stays in their bounding box.  The kernel does integer work only; the
 // float math (ray trig, origins, the EMA) stays in torch, so no compiler
-// contraction can touch it.
+// contraction can touch it.  The recenter is shared with replay_cone.cu
+// (recenter.cuh).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "recenter.cuh"
 
 namespace {
 
@@ -56,42 +59,6 @@ constexpr int kWords = kHdr + kRays * kRayWords;
 
 // header words (ops/residentx.py)
 constexpr int kPcy = 0, kPcx = 1, kDo = 2, kRsy = 3, kRsx = 4, kAny = 5;
-
-struct Geom {
-  int prows, pcols, pad, width, height;
-};
-
-// new[r, c] = old[r + sy, c + sx] where both (r, c) and the source lie in
-// the logical region, else 0; the grid is staged in `tmp` first.  Rows are
-// processed 16 bytes per thread (pcols % 16 == 0, checked by the wrapper).
-__device__ void recenter(int8_t* g, int8_t* tmp, int sy, int sx,
-                         const Geom& geo) {
-  const int n16 = geo.prows * geo.pcols / 16;
-  const int4* src = reinterpret_cast<const int4*>(g);
-  int4* stage = reinterpret_cast<int4*>(tmp);
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) stage[i] = src[i];
-  __syncthreads();
-
-  const int per_row = geo.pcols / 16;
-  const int r_lo = geo.pad, r_hi = geo.pad + geo.height;
-  const int c_lo = geo.pad, c_hi = geo.pad + geo.width;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    const int r = i / per_row;
-    const int c0 = (i - r * per_row) * 16;
-    const bool row_ok = r >= r_lo && r < r_hi && r + sy >= r_lo &&
-                        r + sy < r_hi;
-    alignas(16) int8_t out[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = c0 + j;
-      const bool ok = row_ok && c >= c_lo && c < c_hi && c + sx >= c_lo &&
-                      c + sx < c_hi;
-      out[j] = ok ? tmp[(r + sy) * geo.pcols + c + sx] : int8_t(0);
-    }
-    reinterpret_cast<int4*>(g)[i] = *reinterpret_cast<const int4*>(out);
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads)
 replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,

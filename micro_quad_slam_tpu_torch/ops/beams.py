@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from micro_quad_slam_tpu.utils.config import TofConfig
+from micro_quad_slam_tpu_torch.utils.config import TofConfig
 
 _F32 = np.float32
 

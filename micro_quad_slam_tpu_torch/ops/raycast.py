@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from micro_quad_slam_tpu.utils.config import MapConfig, TofConfig
+from micro_quad_slam_tpu_torch.utils.config import MapConfig, TofConfig
 
 _F32 = np.float32
 _DEG2RAD = _F32(np.pi) / _F32(180.0)

@@ -5,9 +5,10 @@ hand-written Hopper kernel that applies it to every quad's grid
 
 Everything except the grid depends only on the logged frames: origins,
 the recenter schedule, the ray endpoints and the enable gates.  So
-`schedule` runs the sequential [B]-wide carry over T (ToF filter, map
-init, recenter decision, origin shift) and then makes every ray of every
-(quad, frame) at once.  It packs them into one int32 tensor [B, T, WORDS]:
+`schedule` runs the sequential [B]-wide carry over T (`carry`: ToF
+filter, map init, recenter decision, origin shift; ops/conex.py shares
+it) and then makes every ray of every (quad, frame) at once.  It packs
+them into one int32 tensor [B, T, WORDS]:
 
     word  0..7    header: pose row, pose col (padded-grid cells), do,
                   recenter rows sy, recenter cols sx, any-valid-ray, 0, 0
@@ -28,7 +29,7 @@ import math
 
 import torch
 
-from micro_quad_slam_tpu.utils.config import PipelineConfig
+from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams, tof_filter_update
 from micro_quad_slam_tpu_torch.ops.raycast import (
@@ -46,8 +47,9 @@ WORDS = HDR + 32 * RAY_WORDS
 
 
 def check_supported(cfg: PipelineConfig, geom: GridGeom) -> None:
-    """Raise ValueError for a MapConfig / GridGeom the kernel does not
-    take, instead of corrupting grids silently."""
+    """Raise ValueError for a MapConfig / GridGeom the replay kernels
+    (replay_exact, replay_cone) do not take, instead of corrupting grids
+    silently."""
     m = cfg.map
     bad = []
     if not -128 <= m.lo_min <= 0 <= m.lo_max <= 127:
@@ -73,17 +75,19 @@ def check_supported(cfg: PipelineConfig, geom: GridGeom) -> None:
     if geom.pcols % 16:
         bad.append(f"pcols={geom.pcols} must be a multiple of 16")
     if bad:
-        raise ValueError("exact replay kernel: unsupported configuration: "
+        raise ValueError("replay kernels: unsupported configuration: "
                          + "; ".join(bad))
 
 
-def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
-             state0=None):
-    """Grid-free replay of frames [B, T, ...]: reproduces mapping_step's
-    filter / init / recenter / enable sequence and makes every ray.
+def carry(frames: dict, cfg: PipelineConfig, state0=None):
+    """The sequential part of a whole replay, shared by every schedule
+    (the exact one here, the cone and hybrid one in ops/conex.py): the
+    ToF filter, map init, recenter decision and origin shift, carried
+    over T for the whole [B] batch, then the enable gates.
 
-    Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
-    [B, T, ...], final (origin_x, origin_y, inited, filt))."""
+    Returns (beams f32 [B, T, 4, 8], seq {ox, oy, sx, sy, do, enabled}
+    of [B, T], outs {used, kf_flags, filt} [B, T, ...], final (origin_x,
+    origin_y, inited, filt))."""
     from micro_quad_slam_tpu_torch.replay.mapping import (
         init_and_recenter, kf_flags_of, pose_good_for_mapping)
 
@@ -92,15 +96,15 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
     dev = x.device
     beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
     if state0 is not None:
-        carry = (state0.origin_x, state0.origin_y, state0.inited, state0.filt)
-        carry = tuple(c.to(dev) for c in carry)
+        c = (state0.origin_x, state0.origin_y, state0.inited, state0.filt)
+        c = tuple(v.to(dev) for v in c)
     else:
         nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-        carry = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
-                 torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
+        c = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
+             torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
 
     # the sequential carry: [B]-wide, T steps
-    ox, oy, inited, filt = carry
+    ox, oy, inited, filt = c
     seq = {k: [] for k in ("ox", "oy", "inited", "sx", "sy", "do", "filt")}
     for t in range(T):
         filt = tof_filter_update(filt, minima[:, t], cfg.tof.filt_alpha)
@@ -110,13 +114,28 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
             seq[k].append(v)
     final = (ox, oy, inited, filt)
     so = {k: torch.stack(v, dim=1) for k, v in seq.items()}
-
-    # everything below is carry-free: vectorized over [B, T]
-    enabled = so["inited"] & pose_good_for_mapping(
+    so["enabled"] = so.pop("inited") & pose_good_for_mapping(
         x, frames["yaw_deg"], frames["of_q"].to(torch.int32),
         frames["of_rate_x"], frames["sys_health"], cfg.gates.of_min_quality)
+    outs = {"used": so["enabled"], "kf_flags": kf_flags_of(so["do"]),
+            "filt": so.pop("filt")}
+    return beams, so, outs, final
+
+
+def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
+             state0=None):
+    """Grid-free replay of frames [B, T, ...]: reproduces mapping_step's
+    filter / init / recenter / enable sequence (`carry`) and makes every
+    ray.
+
+    Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
+    [B, T, ...], final (origin_x, origin_y, inited, filt))."""
+    beams, so, outs, final = carry(frames, cfg, state0)
+    x, y = frames["x_m"], frames["y_m"]
+    B, T = x.shape
+    # everything below is carry-free: vectorized over [B, T]
     rays = make_rays(beams, x, y, frames["yaw_deg"], so["ox"], so["oy"],
-                     enabled, cfg.map, cfg.tof)
+                     so["enabled"], cfg.map, cfg.tof)
     valid = rays["valid"]
     zero = torch.zeros_like(rays["pcx"])
     header = torch.stack([
@@ -127,8 +146,6 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
                              valid.to(torch.int32)], dim=-1)
     sched = torch.cat([header, ray_words.reshape(B, T, 32 * RAY_WORDS)],
                       dim=-1).contiguous()
-    outs = {"used": enabled, "kf_flags": kf_flags_of(so["do"]),
-            "filt": so["filt"]}
     return sched, outs, final
 
 
@@ -159,8 +176,9 @@ def replay_exact_plain(grids: torch.Tensor, sched: torch.Tensor,
     return grids
 
 
-def _check_operands(grids: torch.Tensor, sched: torch.Tensor,
-                    geom: GridGeom) -> None:
+def check_operands(grids: torch.Tensor, sched: torch.Tensor,
+                   geom: GridGeom, words: int = WORDS) -> None:
+    """Raise on grids / schedule a replay kernel does not take."""
     if grids.dtype != torch.int8 or sched.dtype != torch.int32:
         raise TypeError(f"grids must be int8 and sched int32, got "
                         f"{grids.dtype} and {sched.dtype}")
@@ -169,10 +187,10 @@ def _check_operands(grids: torch.Tensor, sched: torch.Tensor,
                          f"{sched.device}")
     B = grids.shape[0]
     if tuple(grids.shape) != (B, geom.prows, geom.pcols) or \
-            sched.dim() != 3 or tuple(sched.shape[::2]) != (B, WORDS):
+            sched.dim() != 3 or tuple(sched.shape[::2]) != (B, words):
         raise ValueError(f"shapes: grids {tuple(grids.shape)} and sched "
                          f"{tuple(sched.shape)} do not fit [B, {geom.prows}, "
-                         f"{geom.pcols}] and [B, T, {WORDS}]")
+                         f"{geom.pcols}] and [B, T, {words}]")
     if not (grids.is_contiguous() and sched.is_contiguous()):
         raise ValueError("grids and sched must be contiguous")
 
@@ -185,7 +203,7 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
     a CPU tensor to replay_exact_plain; any other device raises.
     `replay_exact.launches` counts the kernel launches."""
     check_supported(cfg, geom)
-    _check_operands(grids, sched, geom)
+    check_operands(grids, sched, geom)
     if grids.device.type == "cpu":
         return replay_exact_plain(grids, sched, cfg, geom)
     if grids.device.type != "cuda":

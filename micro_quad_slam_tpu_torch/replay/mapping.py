@@ -13,10 +13,13 @@ Replay policy, identical to the JAX package and to golden_replay_mapping:
   * ToF EMA filter state advances every record (uav_local_nav.c:1430-1438).
 
 Every function takes tensors with a leading flight dimension [B] and runs
-on the device those tensors live on.  `kernel="xla"` is the per-frame
-plain torch path; the exact whole-replay names go to
-ops/residentx.replay_residentx, which launches the Hopper kernel for CUDA
-tensors.
+on the device those tensors live on; the functions that make tensors
+(frames_to_torch, mapping_init, mapping_state_from_numpy) put them on the
+CUDA device unless the caller passes another.  `kernel="xla"` is the
+per-frame plain torch path of the exact mode, "cone" and "hybrid" those
+of the dense production modes (ops/conemode.py).  The exact whole-replay
+names go to ops/residentx.replay_residentx, the cone and hybrid ones to
+ops/conex.replay_conex; each launches its Hopper kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from micro_quad_slam_tpu.utils.config import PipelineConfig, UL_PROFILE
+from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
+from micro_quad_slam_tpu_torch.ops import conemode
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams, tof_filter_update
 from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
@@ -56,8 +60,13 @@ KF_MAP_RECENTER = 1 << 5
 # exact kernel (the JAX package's per-step and matmul formulations of the
 # same update give bit-identical grids)
 EXACT_KERNELS = ("residentx", "resident", "pallas", "pallas_db", "mxu", "mxu2")
-# the dense cone / hybrid modes, ported with ROADMAP item A7
-CONE_KERNELS = ("cone", "conex", "hybrid", "hybridx", "resident_cone")
+# the per-frame plain torch paths: the exact update and the dense
+# production modes
+PER_FRAME_KERNELS = ("xla", "cone", "hybrid")
+# these names run the whole replay through the cone kernel (name ->
+# hybrid?; "resident_cone" is the JAX package's v1 cone kernel, the same
+# cone semantics)
+CONEX_KERNELS = {"conex": False, "resident_cone": False, "hybridx": True}
 
 
 class MappingState(NamedTuple):
@@ -71,8 +80,20 @@ class MappingState(NamedTuple):
     filt: torch.Tensor       # f32 [B, 4] EMA'd per-direction ToF minima
 
 
+def as_device(device=None) -> torch.device:
+    """The device an entry point puts its tensors on: CUDA unless the
+    caller names another.  Raises when CUDA is asked for and absent,
+    instead of landing on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port's plain torch path on the CPU")
+    return device
+
+
 def mapping_init(batch: int = 1, geom: GridGeom = DEFAULT_GEOM,
                  device=None) -> MappingState:
+    device = as_device(device)
     nan = lambda *s: torch.full(s, float("nan"), dtype=torch.float32,  # noqa: E731
                                 device=device)
     return MappingState(
@@ -90,6 +111,7 @@ def mapping_state_from_numpy(d, device=None) -> MappingState:
     `device`.  `d` is the JAX package's MappingState after
     `jax.tree.map(np.asarray, st)`, a utils/checkpoint restore, or any
     mapping with the same field names and layouts."""
+    device = as_device(device)
     d = d._asdict() if hasattr(d, "_asdict") else dict(d)
     dtypes = {"grid": np.int8, "origin_x": np.float32, "origin_y": np.float32,
               "inited": np.bool_, "filt": np.float32}
@@ -159,14 +181,19 @@ def mapping_step(
     frame: dict,
     cfg: PipelineConfig = UL_PROFILE,
     geom: GridGeom = DEFAULT_GEOM,
+    kernel: str = "xla",
 ):
     """One scanrec (for the whole [B] batch) through the mapper, on the
-    plain torch path.  Returns (new state, outs); the input state is not
-    modified.
+    plain torch path: the exact update ("xla"), or the dense "cone" or
+    "hybrid" one (ops/conemode.py).  Returns (new state, outs); the input
+    state is not modified.
 
     `frame` holds [B]-leading tensors: either raw `grid_mm` int [B,4,8,8]
     or precomputed `beams`/`minima` (the replay loop extracts beams for
     all frames up front)."""
+    if kernel not in PER_FRAME_KERNELS:
+        raise ValueError(f"unknown per-frame kernel {kernel!r}; one of "
+                         f"{PER_FRAME_KERNELS}")
     if "beams" in frame:
         beams, minima = frame["beams"], frame["minima"]
     else:
@@ -186,9 +213,15 @@ def mapping_step(
     enabled = inited & pose_good_for_mapping(
         x, yaw, frame["of_q"].to(torch.int32), frame["of_rate_x"],
         frame["sys_health"], cfg.gates.of_min_quality)
-    rays = make_rays(beams, x, y, yaw, origin_x, origin_y, enabled,
-                     cfg.map, cfg.tof)
-    apply_rays_(grid, rays, cfg.map, geom)
+    if kernel == "xla":
+        rays = make_rays(beams, x, y, yaw, origin_x, origin_y, enabled,
+                         cfg.map, cfg.tof)
+        apply_rays_(grid, rays, cfg.map, geom)
+    else:
+        inp = conemode.scan_inputs(beams, x, y, yaw, origin_x, origin_y,
+                                   enabled, cfg.map, cfg.tof, geom,
+                                   hybrid=kernel == "hybrid")
+        conemode.apply_scans_(grid, inp, cfg.map, cfg.tof, geom)
 
     new_state = MappingState(grid, origin_x, origin_y, inited, filt)
     out = {"used": enabled, "kf_flags": kf_flags_of(do_rc), "filt": filt}
@@ -210,10 +243,12 @@ def scanlog_to_arrays(scanlog) -> dict:
 
 
 def frames_to_torch(frames: dict, device=None) -> dict:
-    """dict of numpy arrays -> dict of tensors on `device`.  Integers
-    narrower than 32 bits (the u16 ToF millimetres, u8 state/quality)
-    widen to int32 and u32/64-bit ones to int64, since torch's unsigned
-    types support few ops; floats stay float32."""
+    """dict of numpy arrays -> dict of tensors on `device` (default the
+    CUDA device).  Integers narrower than 32 bits (the u16 ToF
+    millimetres, u8 state/quality) widen to int32 and u32/64-bit ones to
+    int64, since torch's unsigned types support few ops; floats stay
+    float32."""
+    device = as_device(device)
     out = {}
     for k, v in frames.items():
         a = np.asarray(v)
@@ -247,7 +282,10 @@ def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
     frames_to_torch), all on one device -> (MappingState [B], outs [B, T]).
     Every exact kernel name gives grids bit-equal to the reference;
     "residentx" (and its aliases) runs the whole replay through the exact
-    Hopper kernel on a CUDA device.
+    Hopper kernel on a CUDA device.  "cone" and "hybrid" are the dense
+    production modes, per frame in plain torch; "conex" and
+    "resident_cone" (cone) and "hybridx" (hybrid) run the whole replay
+    through the cone Hopper kernel, bit-equal to the per-frame path.
 
     state0 resumes a previous replay: pass the MappingState from an
     earlier call (or one carried over from the JAX package with
@@ -256,12 +294,11 @@ def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
     if kernel in EXACT_KERNELS:
         from micro_quad_slam_tpu_torch.ops.residentx import replay_residentx
         return replay_residentx(frames, cfg, geom, state0=state0)
-    if kernel in CONE_KERNELS:
-        raise NotImplementedError(
-            f"kernel {kernel!r}: the cone and hybrid replay modes are not "
-            f"ported yet (ROADMAP.md A7, with the Hopper kernel of "
-            f"_hybridx_kernel/_conex_kernel)")
-    if kernel != "xla":
+    if kernel in CONEX_KERNELS:
+        from micro_quad_slam_tpu_torch.ops.conex import replay_conex
+        return replay_conex(frames, cfg, geom, state0=state0,
+                            hybrid=CONEX_KERNELS[kernel])
+    if kernel not in PER_FRAME_KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
 
     check_replay_inputs(frames, state0)
@@ -274,7 +311,7 @@ def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
     for t in range(T):
         fr = {k: frames[k][:, t] for k in _SEQ_KEYS}
         fr["beams"], fr["minima"] = beams[:, t], minima[:, t]
-        state, out = mapping_step(state, fr, cfg, geom)
+        state, out = mapping_step(state, fr, cfg, geom, kernel)
         outs.append(out)
     outs = {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
     return state, outs

@@ -16,9 +16,21 @@ golden C model's result for every flight under `golden_*` keys: `grid`
                           53 mm (flight 1): most rays end in the pose cell
     bench_flight          bench.py's base flight, 256 frames
 
-make.py writes them from the JAX package's flight simulator and golden
-model; tests/test_torch_testdata.py holds every file bit-equal to what
-make.py builds now.
+Beside the flights, reference results of the JAX package's replay
+(`reference(name)`):
+
+    hybrid_random_flights  `grid`: the logical grids [8, 500, 500] of its
+                           kernel="hybrid" replay of random_flights
+    hybrid_bench_sums      `sums` and `weighted` (grid_sums) [1024] of
+                           each flight's grid after its kernel="hybrid"
+                           replay of bench_frames(1024), bench.py's
+                           hybridx workload
+
+tests/test_torch_testdata.py holds every file bit-equal to what the JAX
+package's flight simulator, golden model and replay give now (re-deriving
+a few bench flights), and rewrites them all when run as a script:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_testdata.py
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ FRAME_KEYS = ("grid_mm", "x_m", "y_m", "yaw_deg", "of_q", "of_rate_x",
               "sys_health", "state")
 NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
          "golden_short_beams", "bench_flight")
+REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums")
 
 
 def path(name: str) -> str:
@@ -46,6 +59,24 @@ def load(name: str):
         golden = {k[len("golden_"):]: z[k] for k in z.files
                   if k.startswith("golden_")}
     return frames, golden
+
+
+def reference(name: str) -> dict:
+    """A stored reference result: dict of numpy arrays."""
+    if name not in REFERENCES:
+        raise ValueError(f"unknown reference {name!r}; one of {REFERENCES}")
+    with np.load(path(name)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def grid_sums(grids: np.ndarray) -> dict:
+    """Per-flight int64 digests of int8 grids [B, ...]: `sums`, the plain
+    sum (bench.py's checksum is their int32 total), and `weighted`, the
+    sum of each cell's value times its flat index mod 65521, which also
+    moves when a value moves to another cell."""
+    g = np.asarray(grids).reshape(len(grids), -1).astype(np.int64)
+    w = np.arange(g.shape[1], dtype=np.int64) % 65521
+    return {"sums": g.sum(axis=1), "weighted": g @ w}
 
 
 def bench_frames(B: int = 1024) -> dict:

@@ -1,0 +1,1 @@
+"""Utilities of the PyTorch port: its own copy of the configuration."""

@@ -1,56 +1,109 @@
-"""PyTorch port, package level: the re-declared GridGeom, the jax-free
-import, configuration checks of the exact kernel, and the kernel names
-that are not ported yet."""
+"""PyTorch port, package level: the re-declared GridGeom and configuration,
+that the port imports neither jax nor the JAX package, that its entry
+points ask for the CUDA device by default, its scanlog reader, and the
+configuration and operand checks of its kernels' wrappers."""
 
+import ast
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
+from micro_quad_slam_tpu.formats import scanlog as jscanlog
 from micro_quad_slam_tpu.ops import raycast as jr
 from micro_quad_slam_tpu.sim import synth_room_scanlog
-from micro_quad_slam_tpu.utils.config import MapConfig, TofConfig, UL_PROFILE
+from micro_quad_slam_tpu.utils import config as jconfig
 import micro_quad_slam_tpu_torch as port
+from micro_quad_slam_tpu_torch.formats import scanlog as tscanlog
+from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import raycast as tr
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.utils import config as tconfig
+from micro_quad_slam_tpu_torch.utils.config import (MapConfig, TofConfig,
+                                                    UL_PROFILE)
 
 torch.set_num_threads(2)
+
+PORT_DIR = pathlib.Path(port.__file__).resolve().parent
 
 
 @pytest.mark.parametrize("which", ["default", "from_map_default",
                                    "from_map_fine_rect"])
 def test_grid_geom_equals_jax_field_for_field(which):
-    cfg = MapConfig(res_m=0.05, width=800, height=600)
-    make = {"default": lambda m: m.DEFAULT_GEOM,
-            "from_map_default": lambda m: m.GridGeom.from_map(MapConfig()),
-            "from_map_fine_rect": lambda m: m.GridGeom.from_map(cfg)}[which]
-    j, t = make(jr), make(tr)
+    make = {"default": lambda m, c: m.DEFAULT_GEOM,
+            "from_map_default": lambda m, c: m.GridGeom.from_map(c.MapConfig()),
+            "from_map_fine_rect": lambda m, c: m.GridGeom.from_map(
+                c.MapConfig(res_m=0.05, width=800, height=600))}[which]
+    j, t = make(jr, jconfig), make(tr, tconfig)
     names = [f.name for f in dataclasses.fields(jr.GridGeom)]
     assert names == [f.name for f in dataclasses.fields(tr.GridGeom)]
     assert dataclasses.astuple(j) == dataclasses.astuple(t)
 
 
+def _fields(cfg):
+    """A configuration as nested (class name, field, value) tuples."""
+    return (type(cfg).__name__,) + tuple(
+        (f.name, _fields(getattr(cfg, f.name))
+         if dataclasses.is_dataclass(getattr(cfg, f.name))
+         else getattr(cfg, f.name)) for f in dataclasses.fields(cfg))
+
+
+@pytest.mark.parametrize("profile", ["UL_PROFILE", "CL_PROFILE",
+                                     "UL_RT_PROFILE"])
+def test_config_equals_jax_field_for_field(profile):
+    """The port's copy of utils/config.py: the same classes, fields,
+    defaults and profiles as the JAX package's."""
+    assert (_fields(getattr(tconfig, profile))
+            == _fields(getattr(jconfig, profile)))
+    assert getattr(port, profile) is getattr(tconfig, profile)
+    t = tconfig.PipelineConfig()
+    assert t.map.max_ray_cells == jconfig.MapConfig().max_ray_cells
+    assert t.tof.half_fov_deg == jconfig.TofConfig().half_fov_deg
+
+
+def _imports(path: pathlib.Path):
+    """Every module name a Python file imports (absolute imports)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    files = sorted(PORT_DIR.rglob("*.py"))
+    assert len(files) >= 15
+    bad = [(str(f.relative_to(PORT_DIR)), m) for f in files
+           for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "micro_quad_slam_tpu")]
+    assert not bad
+
+
 def test_port_imports_and_replays_without_jax(tmp_path):
     """In a fresh interpreter (this process already holds jax: conftest
-    imports it), the port imports and replays a short flight on the CPU
-    and never imports jax."""
+    imports it), the port imports and replays committed flights on the
+    CPU in the exact and the hybrid whole-replay modes, and imports
+    neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
-        import numpy as np
         import micro_quad_slam_tpu_torch as port
-        from micro_quad_slam_tpu.sim import synth_room_scanlog
-        from micro_quad_slam_tpu.utils.config import UL_PROFILE
-        log = synth_room_scanlog(n_frames=6, seed=1)
-        f = {k: v[None] for k, v in port.scanlog_to_arrays(log).items()}
-        st, outs = port.replay_mapping_batched(
-            port.frames_to_torch(f, "cpu"), UL_PROFILE, kernel="residentx")
-        assert bool(outs["used"].all()) and int(st.grid.ne(0).sum()) > 100
-        assert "jax" not in sys.modules, sorted(m for m in sys.modules
-                                                if m.startswith("jax"))
+        from micro_quad_slam_tpu_torch import testdata
+        f, _ = testdata.load("random_flights")
+        f = port.frames_to_torch({k: v[:2, :8] for k, v in f.items()}, "cpu")
+        for kernel in ("residentx", "hybridx"):
+            st, outs = port.replay_mapping_batched(f, port.UL_PROFILE,
+                                                   kernel=kernel)
+            assert bool(outs["used"].all()), kernel
+            assert int(st.grid.ne(0).sum()) > 100, kernel
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "micro_quad_slam_tpu"))
+        assert not loaded, loaded
         print("ok")
     """)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -58,6 +111,62 @@ def test_port_imports_and_replays_without_jax(tmp_path):
                           env={**os.environ, "PYTHONPATH": ":".join(sys.path)})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _np_frames():
+    log = synth_room_scanlog(n_frames=3, seed=0)
+    return {k: v[None] for k, v in port.scanlog_to_arrays(log).items()}
+
+
+@pytest.mark.parametrize("entry", ["frames_to_torch", "mapping_init",
+                                   "mapping_state_from_numpy"])
+def test_entry_points_ask_for_cuda_by_default(entry):
+    """Without a device argument the port's tensors go to the CUDA
+    device; without one they raise instead of landing on the CPU."""
+    call = {"frames_to_torch": lambda: port.frames_to_torch(_np_frames()),
+            "mapping_init": lambda: port.mapping_init(2),
+            "mapping_state_from_numpy": lambda: port.mapping_state_from_numpy(
+                port.mapping_state_to_numpy(port.mapping_init(2, device="cpu")))
+            }[entry]
+    if torch.cuda.is_available():
+        out = call()
+        t = out["x_m"] if isinstance(out, dict) else out.grid
+        assert t.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_cli_without_cuda_needs_device_cpu(tmp_path, capsys):
+    from micro_quad_slam_tpu_torch.__main__ import main
+
+    p = tmp_path / "f.bin"
+    jscanlog.write_scanlog(str(p), synth_room_scanlog(n_frames=4, seed=1))
+    rc = main(["replay", "--log", str(p), "--kernel", "hybridx"])
+    if torch.cuda.is_available():
+        assert rc == 0                     # the default: the CUDA device
+    else:
+        assert rc == 2 and "--device cpu" in capsys.readouterr().err
+    assert main(["replay", "--log", str(p), "--kernel", "hybridx",
+                 "--device", "cpu"]) == 0
+    assert "replayed 4 frames" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_scanlog_reader_equals_jax(tmp_path, strict):
+    log = synth_room_scanlog(n_frames=7, seed=5, noise_mm=5.0)
+    p = tmp_path / "f.bin"
+    jscanlog.write_scanlog(str(p), log)
+    data = p.read_bytes()
+    if not strict:
+        data += b"\0" * 100                   # a trailing partial record
+    want = jscanlog.read_scanlog(data, strict=strict)
+    got = tscanlog.read_scanlog(data, strict=strict)
+    assert len(got) == len(want) == 7
+    a, b = port.scanlog_to_arrays(got), port.scanlog_to_arrays(want)
+    for k in b:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def _frames(**synth):
@@ -112,12 +221,35 @@ def test_exact_kernel_checks_operands_and_devices():
     assert rx.replay_exact.launches == before      # the CPU path launches none
 
 
-@pytest.mark.parametrize("kernel", ["cone", "conex", "hybrid", "hybridx",
-                                    "resident_cone"])
-def test_cone_kernels_are_not_ported_yet(kernel):
-    frames = _frames(n_frames=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
+@pytest.mark.parametrize("case", ["lo_min_above_zero",
+                                  "geometry_of_another_map",
+                                  "rays_longer_than_window"])
+def test_cone_kernel_refuses_unsupported_config(case):
+    m, tof = UNSUPPORTED[case]
+    cfg = UL_PROFILE.replace(**({"map": m} if m else {}),
+                             **({"tof": tof} if tof else {}))
+    grids = torch.zeros((1, 608, 640), dtype=torch.int8)
+    sched = torch.zeros((1, 2, cx.HYBRID_WORDS), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported configuration"):
+        cx.replay_cone(grids, sched, cfg, hybrid=True)
+    with pytest.raises(ValueError, match="unsupported configuration"):
+        port.replay_mapping_batched(_frames(n_frames=2, seed=0), cfg,
+                                    kernel="hybridx")
+
+
+def test_cone_kernel_checks_operands_and_devices():
+    grids = torch.zeros((2, 608, 640), dtype=torch.int8)
+    sched = torch.zeros((2, 3, cx.CONE_WORDS), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shapes"):
+        cx.replay_cone(grids, sched, UL_PROFILE, hybrid=True)
+    with pytest.raises(TypeError):
+        cx.replay_cone(grids, sched.float(), UL_PROFILE)
+    meta = torch.zeros((2, 608, 640), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no cone replay kernel"):
+        cx.replay_cone(meta, sched.to("meta"), UL_PROFILE)
+    before = cx.replay_cone.launches
+    cx.replay_cone(grids, sched, UL_PROFILE)
+    assert cx.replay_cone.launches == before       # the CPU path launches none
 
 
 @pytest.mark.parametrize("kernel", ["resident", "pallas", "pallas_db", "mxu",

@@ -9,13 +9,14 @@ import jax
 import jax.numpy as jnp
 
 from micro_quad_slam_tpu.ops import raycast as jr
-from micro_quad_slam_tpu.utils.config import MapConfig, TofConfig
+from micro_quad_slam_tpu.utils.config import MapConfig as JaxMapConfig
 from micro_quad_slam_tpu_torch.ops import raycast as tr
+from micro_quad_slam_tpu_torch.utils.config import MapConfig, TofConfig
 
 torch.set_num_threads(2)
 
 GEOM = tr.DEFAULT_GEOM
-CFG = MapConfig()
+CFG, JCFG = MapConfig(), JaxMapConfig()
 T_ = torch.from_numpy
 
 
@@ -39,7 +40,7 @@ def _poses(seed, n):
 @pytest.mark.parametrize("seed", range(2))
 def test_make_rays_matches_jax(seed):
     beams, x, y, yaw, ox, oy, en = _poses(seed, 96)
-    want = jax.jit(jax.vmap(lambda *a: jr.make_rays(*a, CFG)))(
+    want = jax.jit(jax.vmap(lambda *a: jr.make_rays(*a, JCFG)))(
         beams, x, y, yaw, ox, oy, en)
     got = tr.make_rays(T_(beams), T_(x), T_(y), T_(yaw), T_(ox), T_(oy),
                        T_(en), CFG)
@@ -93,7 +94,7 @@ def _near_saturation_case():
 # at the first call)
 _jax_apply_scan = jax.jit(jax.vmap(
     lambda g, b, x, y, w, e: jr.apply_scan_to_grid(
-        g, b, x, y, w, np.float32(0), np.float32(0), e, CFG)))
+        g, b, x, y, w, np.float32(0), np.float32(0), e, JCFG)))
 
 
 @pytest.mark.parametrize("case", ["random0", "random1", "random2",
@@ -122,7 +123,7 @@ def test_recenter_decide_and_shift_origin_match_jax():
     ok = rng.random(n) > 0.2
     ox[0] = np.nan                                  # before map init
     sj = jr.recenter_decide(jnp.asarray(ox), jnp.asarray(oy), jnp.asarray(x),
-                            jnp.asarray(y), jnp.asarray(ok), CFG)
+                            jnp.asarray(y), jnp.asarray(ok), JCFG)
     st = tr.recenter_decide(T_(ox), T_(oy), T_(x), T_(y), T_(ok), CFG)
     for a, b in zip(sj, st):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
@@ -142,7 +143,7 @@ def test_recenter_apply_matches_jax():
         -80, 81, (B, 500, 500)).astype(np.int8)
     sx = np.array([0, 3, -125, 125, -7], np.int32)
     sy = np.array([0, -2, 40, -125, 499], np.int32)
-    want = jax.jit(jax.vmap(lambda a, b, c: jr.recenter_apply(a, b, c, CFG)))(
+    want = jax.jit(jax.vmap(lambda a, b, c: jr.recenter_apply(a, b, c, JCFG)))(
         g, sx, sy)
     got = tr.recenter_apply(T_(g), T_(sx), T_(sy), CFG)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

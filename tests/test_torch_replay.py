@@ -19,8 +19,10 @@ import jax.numpy as jnp
 from micro_quad_slam_tpu.golden import golden_replay_mapping
 from micro_quad_slam_tpu.replay import mapping as jm
 from micro_quad_slam_tpu.sim import synth_room_scanlog
-from micro_quad_slam_tpu.utils.config import CL_PROFILE, UL_PROFILE
+from micro_quad_slam_tpu.utils.config import CL_PROFILE as JAX_CL
+from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
 import micro_quad_slam_tpu_torch as port
+from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
 from micro_quad_slam_tpu_torch.replay import mapping as tm
 
 torch.set_num_threads(2)
@@ -66,7 +68,7 @@ def _assert_state(jstate, tstate, jouts=None, touts=None):
 @pytest.fixture(scope="module")
 def two_flights_jax():
     frames = _two_flights()
-    st, outs = jm.replay_mapping_batched(frames, UL_PROFILE)
+    st, outs = jm.replay_mapping_batched(frames, JAX_UL)
     assert (np.asarray(outs["kf_flags"]) != 0).sum() >= 1   # recentered
     return frames, st, outs
 
@@ -84,7 +86,7 @@ def test_residentx_matches_jax_pallas_interpret(two_flights_jax):
     from micro_quad_slam_tpu.ops.pallas_residentx import (
         pallas_replay_residentx)
     frames, _, _ = two_flights_jax
-    st, outs = pallas_replay_residentx(frames, UL_PROFILE, interpret=True)
+    st, outs = pallas_replay_residentx(frames, JAX_UL, interpret=True)
     tst, touts = _port(frames, "residentx")
     _assert_state(st, tst, outs, touts)
 
@@ -195,7 +197,7 @@ def test_resume_across_packages(two_flights_jax, first):
     head = {k: v[:, :T // 2] for k, v in frames.items()}
     tail = {k: v[:, T // 2:] for k, v in frames.items()}
     if first == "jax":
-        st0, _ = jm.replay_mapping_batched(head, UL_PROFILE)
+        st0, _ = jm.replay_mapping_batched(head, JAX_UL)
         state0 = tm.mapping_state_from_numpy(jax.tree.map(np.asarray, st0),
                                              "cpu")
         end, _ = _port(tail, "residentx", state0=state0)
@@ -203,15 +205,16 @@ def test_resume_across_packages(two_flights_jax, first):
         st0, _ = _port(head, "residentx")
         d = tm.mapping_state_to_numpy(st0)
         state0 = jm.MappingState(**{k: jnp.asarray(v) for k, v in d.items()})
-        jend, _ = jm.replay_mapping_batched(tail, UL_PROFILE, state0=state0)
-        end = tm.mapping_state_from_numpy(jax.tree.map(np.asarray, jend))
+        jend, _ = jm.replay_mapping_batched(tail, JAX_UL, state0=state0)
+        end = tm.mapping_state_from_numpy(jax.tree.map(np.asarray, jend),
+                                          "cpu")
     _assert_state(full, end)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_state0_batch_mismatch_raises(kernel):
     frames = _two_flights()
-    state0 = port.mapping_init(3)
+    state0 = port.mapping_init(3, device="cpu")
     with pytest.raises(ValueError, match="batch mismatch"):
         _port(frames, kernel, state0=state0)
 
@@ -223,7 +226,7 @@ def test_cl_profile_uses_cl_state_enum(kernel):
     log = synth_room_scanlog(n_frames=8, seed=29)
     log.state[:] = 6
     frames = {k: v[None] for k, v in tm.scanlog_to_arrays(log).items()}
-    jst, jouts = jm.replay_mapping_batched(frames, CL_PROFILE)
+    jst, jouts = jm.replay_mapping_batched(frames, JAX_CL)
     st, outs = _port(frames, kernel, CL_PROFILE)
     assert bool(st.inited[0]) and outs["used"].any()
     _assert_state(jst, st, jouts, outs)
