@@ -74,9 +74,9 @@ KERNELS = {
         # pallas_resident.py:440 _resident_cone_kernel
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1447"},
 }
-# the card's peaks (the on-chip-measurement guide's table, H100 SXM at
-# 700 W): HBM bytes/s, and float32 operations/s outside the tensor cores,
-# which the bound also takes for the exact kernel's integer work
+# the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and
+# float32 operations/s outside the tensor cores, which the bound also
+# takes for the exact kernel's integer work
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float operations per classified cell, counted from replay_cone.cu's
