@@ -74,22 +74,30 @@ KERNELS = {
         # pallas_resident.py:440 _resident_cone_kernel
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1447"},
 }
-# the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and
-# float32 operations/s outside the tensor cores, which the bound also
-# takes for the exact kernel's integer work
+# the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
+# dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
+# FLOP/s counts an fma as two operations; the kernels are built with
+# -fmad=false and do adds, multiplies, compares and selects, which dispatch
+# at 128 per clock per SM at most, half that rate, as does every
+# instruction together.  Int32 operations dispatch at 64 per clock per SM,
+# a quarter of it.  Negation and abs are free operand modifiers.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# float operations per classified cell, counted from replay_cone.cu's
-# cone_delta: the cell vector (2 adds), the quadrant tests (4 products,
-# 4 compares), the rotation (3 negations), the column search (4 x (2
-# products + compare)), the sector's return (abs, compare), the squared
-# radius (3), the free carve (sub, max, mul, square, 3 compares) = 37;
-# cone mode adds the occupied band (hit test, sub, max, mul, add, mul, 2
-# squares, 2 compares) = 47
-CONE_CELL_OPS = {False: 47, True: 37}
-# integer operations per cell of an exact ray (replay_exact.cu: minor
-# offset, two selects, two products, the address, the add and the clamp)
-EXACT_CELL_OPS = 10
+DISPATCH_OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = 67e12 / 4
+# (float, int32) operations per classified cell, counted from
+# replay_cone.cu's cone_delta and the clip.  Float: the cell vector (2
+# adds), the quadrant tests (4 products, 4 compares), the rotation into
+# the quadrant (4 selects), the column search (4 x (2 products +
+# compare)), the sector's return (compare), the squared radius (3), the
+# free carve (sub, max, mul, square, 3 compares) and the delta's select
+# = 38; cone mode adds the occupied band (sub, max, mul, add, mul, 2
+# squares, 3 compares, select) = 49.  Int32: the sector index (4) and
+# the clip (add, min, max) = 7.
+CONE_CELL_OPS = {False: (49, 7), True: (38, 7)}
+# int32 operations per cell of an exact ray (replay_exact.cu): the minor
+# offset (2 products, add, divide), two selects, two signs, the address
+# (2), the endpoint select, and the clip (add, min, max) = 14
+EXACT_CELL_OPS = (0, 14)
 
 
 def check(ok, what: str) -> None:
@@ -460,15 +468,18 @@ def _bound(name: str, sched, hybrid: bool = False) -> dict:
     """The least time the card could take for the kernel's work on this
     schedule: the larger of its bytes (the schedule read once, each
     touched grid sector read once and written once) over the HBM rate
-    and its operations over the float32 peak."""
+    and its operations over their dispatch rates: all of them over the
+    dispatch rate, and the int32 ones alone over theirs."""
     if name == "replay_exact":
         sectors, cells = _exact_touched(sched)
-        ops = cells * EXACT_CELL_OPS
+        f_ops, i_ops = EXACT_CELL_OPS
     else:
         sectors, cells = _cone_touched(sched)
-        ops = cells * CONE_CELL_OPS[hybrid]
+        f_ops, i_ops = CONE_CELL_OPS[hybrid]
+    ops = cells * (f_ops + i_ops)
     nbytes = sched.numel() * sched.element_size() + 2 * 32 * sectors
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / DISPATCH_OPS_PER_S, cells * i_ops / INT32_OPS_PER_S)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_ops": ops, "grid_sectors": sectors,

@@ -1,7 +1,7 @@
 """python -m micro_quad_slam_tpu_torch: command line of the PyTorch port.
 
   python -m micro_quad_slam_tpu_torch replay --log scanlog.bin [more.bin ...]
-      [--kernel xla|residentx|cone|hybrid|conex|hybridx|resident_cone]
+      [--kernel xla|residentx|cone|hybrid|conex|hybridx|resident_cone|...]
       [--profile ul|cl] [--device cuda|cpu] [--out map.npy]
 
 The counterpart of `mqs replay` (micro_quad_slam_tpu/cli.py) for scanlog
@@ -17,9 +17,10 @@ import sys
 import numpy as np
 import torch
 
+from micro_quad_slam_tpu_torch.replay.mapping import (
+    CONEX_KERNELS, EXACT_KERNELS, PER_FRAME_KERNELS)
 
-KERNELS = ("xla", "residentx", "cone", "hybrid", "conex", "hybridx",
-           "resident_cone")
+KERNELS = PER_FRAME_KERNELS + EXACT_KERNELS + tuple(CONEX_KERNELS)
 
 
 def _profile(name: str):
@@ -102,9 +103,11 @@ def main(argv=None) -> int:
     pr.add_argument("--out", help="write each flight's logical grid as .npy")
     pr.add_argument("--profile", default="ul", choices=("ul", "cl"))
     pr.add_argument("--kernel", default="xla", choices=KERNELS,
-                    help="xla: per-frame plain torch path; residentx: the "
-                         "whole replay through the exact CUDA kernel (both "
-                         "bit-exact reference semantics); cone/hybrid: the "
+                    help="xla: per-frame plain torch path; residentx (and "
+                         "its aliases resident, pallas, pallas_db, mxu, "
+                         "mxu2): the whole replay through the exact CUDA "
+                         "kernel (both bit-exact reference semantics); "
+                         "cone/hybrid: the "
                          "dense production modes, per frame in plain torch; "
                          "conex/resident_cone (cone) and hybridx (hybrid): "
                          "the whole replay through the cone CUDA kernel.  "
