@@ -4,33 +4,45 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's two replay paths, the batched bit-exact mapping
-replay (kernel="residentx") and the hybrid production replay
-(kernel="hybridx"), and builds and checks their hand-written CUDA kernels
-(csrc/replay_exact.cu, csrc/replay_cone.cu).  Each phase prints one line
-and raises on failure; nothing falls back to the CPU.  Phases:
+It drives the port's replay paths, the batched bit-exact mapping replay
+(kernel="residentx"), the hybrid production replay (kernel="hybridx") and
+the SLAM replay (slam_replay: EKF odometry, scan matching, pose graph,
+re-raster), and builds and checks their hand-written CUDA kernels
+(csrc/replay_exact.cu with its snapshot entry, csrc/replay_cone.cu,
+csrc/match_lattice.cu).  Each phase prints one line and raises on
+failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. the sm_90a build of both kernels from the checkout's sources, one
-     nvcc per source started together, with their seconds;
+  2. the sm_90a build of the three sources, one nvcc per source started
+     together, with their seconds;
   3. exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames and short beams;
      then the same for the cone kernel in both modes (conex == cone,
      hybridx == hybrid), and hybridx == the JAX package's hybrid grids
-     of the random flights;
+     of the random flights; then the lattice kernel == its plain version
+     at the SLAM path's two slab shapes and match counts, and the
+     snapshot and scheduled-chunk entries == theirs, with recenters;
   4. exact kernel == the golden C model on a hover, a recentering flight
      and very short beams;
   5. resume: a residentx and a hybridx replay split at T/2 equal the
      unbroken ones;
-  6. the bench workload (bench.py's flight, B=1024 x T=256) on each path:
-     end-to-end frames/s of the kernel path and of the plain torch path,
-     the grid checksum, the schedule's own seconds, the device's busy
-     time in one profiled replay (torch.profiler) and its idle share of
-     the best end-to-end time, and each kernel's own time against its
-     plain version and its bound.  The hybridx grids' per-flight sums
-     (plain and position-weighted) must equal the JAX package's hybrid
-     replay's.
+  6. slam_replay on the 4 distinct SLAM bench flights (both profiles)
+     against the JAX package's CPU results: tracks, keyframe nodes and
+     every flight's grid sums;
+  7. the bench workloads: bench.py's flight, B=1024 x T=256, on the
+     residentx and hybridx paths (end-to-end frames/s of the kernel path
+     and of the plain torch path, the grid checksum, the schedule's own
+     seconds, the device's busy time in one profiled replay
+     (torch.profiler) and its idle share of the best end-to-end time, and
+     each kernel's own time against its plain version and its bound; the
+     cone kernel is also timed in cone mode); the SLAM bench, UL_PROFILE at
+     B=128 and UL_RT_PROFILE at B=256, T=256 (frames/s, checksum, per-stage
+     seconds, launches, device busy and idle share, and the lattice kernel
+     and snapshot entry alone against their plain versions and bounds);
+     and the EKF bench at B=1024.  The hybridx grids' per-flight sums
+     must equal the JAX package's hybrid replay's, and the SLAM checksums
+     the JAX package's CPU results.
 
 It imports the port and numpy only: the inputs and reference results are
 committed files of the port (micro_quad_slam_tpu_torch/testdata).
@@ -54,16 +66,26 @@ import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops import conex as cx
+from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.ops import scanmatch as sm
+from micro_quad_slam_tpu_torch.replay import fusion as fu
+from micro_quad_slam_tpu_torch.slam import pipeline as sp
 
 UL_PROFILE = port.UL_PROFILE
 GEOM = port.DEFAULT_GEOM
+SLAM_PROFILES = {"ul": port.UL_PROFILE, "rt": port.UL_RT_PROFILE}
 
 # the JAX package's bench lines on the TPU (BENCH_r05): checksum anchors
-CHECKSUM_REF = {"residentx": -239317572, "hybridx": -401735680}
+CHECKSUM_REF = {"residentx": -239317572, "hybridx": -401735680,
+                "ul": -28317856, "rt": -56410560, "ekf": 1024}
 METRIC = {"residentx": "fused_sensor_frames_per_sec_per_chip",
-          "hybridx": "fused_sensor_frames_per_sec_per_chip_hybridx"}
+          "hybridx": "fused_sensor_frames_per_sec_per_chip_hybridx",
+          "ul": "slam_frames_per_sec_per_chip",
+          "rt": "slam_rt_frames_per_sec_per_chip",
+          "ekf": "ekf_frames_per_sec_per_chip"}
 PLAIN = {"residentx": "xla", "hybridx": "hybrid"}
+SOURCES = ("replay_exact", "replay_cone", "match_lattice")
 KERNELS = {
     "replay_exact": {
         "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
@@ -73,7 +95,18 @@ KERNELS = {
         # _hybridx_kernel; it also replaces _conex_kernel (:1439) and
         # pallas_resident.py:440 _resident_cone_kernel
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1447"},
+    "match_lattice": {
+        "source": "micro_quad_slam_tpu_torch/csrc/match_lattice.cu",
+        "replaces": "micro_quad_slam_tpu/ops/pallas_scanmatch.py:49"},
+    "replay_exact_snap": {
+        # the snapshot entry (mqs_replay_exact_snap) of the exact kernel
+        "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
+        "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:845"},
 }
+# counters of the kernels' wrappers (one per launch)
+WRAPPERS = {"replay_exact": rx.replay_exact, "replay_cone": cx.replay_cone,
+            "match_lattice": ml.match_lattice,
+            "replay_exact_snap": rx.replay_exact_snap}
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -98,6 +131,9 @@ CONE_CELL_OPS = {False: (49, 7), True: (38, 7)}
 # offset (2 products, add, divide), two selects, two signs, the address
 # (2), the endpoint select, and the clip (add, min, max) = 14
 EXACT_CELL_OPS = (0, 14)
+# int32 operations per lattice lookup (match_lattice.cu): the four bound
+# compares, the slab address (multiply, add) and the accumulate = 7
+MATCH_LOOKUP_OPS = 7
 
 
 def check(ok, what: str) -> None:
@@ -122,13 +158,12 @@ def replay(frames_np: dict, device, kernel: str, state0=None):
 
 
 def reset_launches() -> None:
-    rx.replay_exact.launches = 0
-    cx.replay_cone.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
 def launches() -> dict:
-    return {"replay_exact": rx.replay_exact.launches,
-            "replay_cone": cx.replay_cone.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def assert_same(a, b, what: str) -> None:
@@ -208,7 +243,7 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.build_all(list(KERNELS))
+    built = _build.build_all(list(SOURCES))
     wall = time.perf_counter() - t0
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -329,20 +364,47 @@ def _time_replay(frames, kernel: str, reps: int):
     return times, state, outs
 
 
-def _time_kernel(grids, fn, reps: int) -> float:
-    """ms per call of fn(grids) by CUDA events, grids reset to zero
-    (outside the timed span) before every call."""
+def _time_call(fn, reps: int, setup=None) -> float:
+    """ms per call of fn() by CUDA events, with setup() (outside the timed
+    span) before every call."""
     total = 0.0
     for _ in range(reps):
-        grids.zero_()
+        if setup is not None:
+            setup()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn(grids)
+        fn()
         e1.record()
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / reps
+
+
+def _time_kernel(grids, fn, reps: int) -> float:
+    """ms per call of fn(grids), grids reset to zero before every call."""
+    return _time_call(lambda: fn(grids), reps, grids.zero_)
+
+
+def _dev_us(e) -> float:
+    """Device microseconds of a torch.profiler key_averages() entry."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
+
+
+def _time_queued(fn, n: int = 20) -> float:
+    """ms per call of fn() over n calls queued back to back after one
+    more, by CUDA events: the card's time per launch for a wrapper that
+    does not wait for the card (its host work overlaps the kernels)."""
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 def _schedule(frames, kernel: str):
@@ -364,11 +426,20 @@ def _time_schedule(frames, kernel: str, reps: int) -> list:
 
 
 def _device_busy(frames, kernel: str) -> dict:
-    """One end-to-end replay under torch.profiler (host and device): the
-    summed device time of every kernel, copy and fill it ran and their
-    count, the device time of the port's own CUDA kernel (by name), the
-    wall time of the profiled run, and the five host ops with the most
-    self time.  busy_ms is None when the profiler saw no device
+    """_profiled_busy of one end-to-end replay, with the device time of
+    the port's replay kernels summed."""
+    busy = _profiled_busy(lambda: port.replay_mapping_batched(
+        frames, UL_PROFILE, kernel=kernel), ("replay_",))
+    busy["kernel_device_ms"] = sum(busy["kernel_device_ms"].values())
+    return busy
+
+
+def _profiled_busy(fn, names) -> dict:
+    """One call of fn under torch.profiler (host and device): the summed
+    device time of every kernel, copy and fill it ran and their count, the
+    device ms and launches of each kernel whose name holds one of
+    `names`, the wall time of the profiled run, and the five host ops with
+    the most self time.  busy_ms is None when the profiler saw no device
     activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -376,20 +447,20 @@ def _device_busy(frames, kernel: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = lambda e: (getattr(e, "self_device_time_total", None)  # noqa: E731
-                        or getattr(e, "self_cuda_time_total", 0))
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    us = sum(dev_us(e) for e in on_dev)
+    us = sum(_dev_us(e) for e in on_dev)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return {"busy_ms": us / 1e3 if us > 0 else None,
             "device_ops": sum(e.count for e in on_dev),
-            "kernel_device_ms": sum(dev_us(e) for e in on_dev
-                                    if "replay_" in e.key) / 1e3,
+            "kernel_device_ms": {e.key: _dev_us(e) / 1e3 for e in on_dev
+                                 if any(n in e.key for n in names)},
+            "kernel_launches": {e.key: e.count for e in on_dev
+                                if any(n in e.key for n in names)},
             "host_top": [[e.key, e.self_cpu_time_total / 1e3, e.count]
                          for e in host[:5]],
             "profiled_wall_s": wall}
@@ -403,15 +474,26 @@ def _recentering_quads(sched) -> torch.Tensor:
     return sched[..., rx.H_DO].any(dim=1)
 
 
-def _exact_touched(sched) -> tuple:
+def _exact_touched(sched, slab=None) -> tuple:
     """(distinct 32-byte grid sectors, cells) the exact kernel reads and
     writes for this schedule: the cells of every valid ray, and the whole
-    grid of a quad that recenters."""
+    grid of a quad that recenters; with slab = (rows, cols), also the
+    snapshot slabs (header words H_R0S, H_C0S) the snapshot entry reads."""
     B, T, _ = sched.shape
     dev = sched.device
     n_sec = GEOM.prows * GEOM.pcols // 32
     mark = torch.zeros((B, n_sec), dtype=torch.bool, device=dev)
     mark[_recentering_quads(sched)] = True
+    if slab is not None:
+        rows, cols = slab
+        per_row = GEOM.pcols // 32
+        r = (sched[..., rx.H_R0S, None].long()
+             + torch.arange(rows, device=dev))                  # [B, T, rows]
+        c = (sched[..., rx.H_C0S, None].long() // 32
+             + torch.arange(cols // 32, device=dev))            # [B, T, c32]
+        sec = r[..., :, None] * per_row + c[..., None, :]
+        quad = torch.arange(B, device=dev).view(B, 1, 1, 1).expand_as(sec)
+        mark[quad.reshape(-1), sec.reshape(-1)] = True
     k = torch.arange(GEOM.win_r + 1, device=dev).view(1, 1, 1, -1)
     quad = torch.arange(B, device=dev).view(B, 1, 1, 1)
     cells = 0
@@ -557,10 +639,425 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     check(err == 0, f"{name} vs plain max abs err {err}")
     bound = _bound(name, sched, hybrid=kernel == "hybridx")
     say("kernel_bound", kernel=name, mode=kernel, **bound)
+    if kernel == "hybridx":
+        _cone_mode_alone(frames, st_k.grid, smi)
     return {"name": name, "route": "cuda", **KERNELS[name],
             "launches": n_launch[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": None}
+
+
+def _cone_mode_alone(frames, like, smi: str) -> None:
+    """The cone kernel in cone mode (kernel names conex, resident_cone) on
+    the bench schedule: its time against its plain version and its bound."""
+    sched = cx.schedule(frames, UL_PROFILE, hybrid=False)[0]
+    grids = torch.zeros_like(like)
+    ms = _time_kernel(grids, lambda g: cx.replay_cone(g, sched, UL_PROFILE,
+                                                      False), 5)
+    plain = torch.zeros_like(grids)
+    plain_ms = _time_kernel(
+        plain, lambda g: cx.replay_cone_plain(g, sched, UL_PROFILE, False), 1)
+    err = int((grids.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    check(err == 0, f"replay_cone (cone mode) vs plain max abs err {err}")
+    say("kernel_cone_mode", kernel="replay_cone", mode="conex", ms=ms,
+        plain_ms=plain_ms, max_abs_err=err,
+        **_bound("replay_cone", sched, hybrid=False), card=smi)
+
+
+# ------------------------------------------------------------------ SLAM
+
+def _random_slots(device, K: int = 8):
+    """The committed random flights' every 8th frame as K keyframe slots,
+    with a chunk-start recenter (flight 0, slot 4) and a mid-chunk one
+    (flight 1, slot 2), on grids of random log-odds."""
+    t = port.frames_to_torch(random_flights(), device)
+    B = t["x_m"].shape[0]
+    beams, _ = port.ops.extract_beams(t["grid_mm"], UL_PROFILE.tof)
+    sel = slice(0, 8 * K, 8)
+    x, y, yaw = t["x_m"][:, sel], t["y_m"][:, sel], t["yaw_deg"][:, sel]
+    ox, oy = x[:, :1].expand(B, K).clone(), y[:, :1].expand(B, K).clone()
+    ox, oy = ox.nan_to_num(0.0), oy.nan_to_num(0.0)
+    do = torch.zeros((B, K), dtype=torch.int32, device=device)
+    rsy, rsx = do.clone(), do.clone()
+    do[0, 4], rsy[0, 4], rsx[0, 4] = 1, 5, -3
+    do[1, 2], rsy[1, 2], rsx[1, 2] = 1, -4, 7
+    g = torch.randint(-60, 61, (B, GEOM.prows, GEOM.pcols), dtype=torch.int8,
+                      device=device,
+                      generator=torch.Generator(device=device).manual_seed(3))
+    outside = torch.ones_like(g, dtype=torch.bool)
+    outside[:, GEOM.pad:GEOM.pad + GEOM.height,
+            GEOM.pad:GEOM.pad + GEOM.width] = False
+    g[outside] = 0
+    return [beams[:, sel].contiguous(), x, y, yaw, ox, oy, do, rsy, rsx], g
+
+
+def _random_lattice(device, N: int, shape, n_yaw: int, T: int, seed: int):
+    """Random slabs and indices with -1 masks and out-of-slab indices."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    SR, SC = shape
+    slabs = torch.randint(-128, 128, (N, SR, SC), dtype=torch.int8,
+                          device=device, generator=g)
+    ry = torch.randint(-1, SR + 2, (N, n_yaw * T, 32), dtype=torch.int32,
+                       device=device, generator=g)
+    rxi = torch.randint(-1, SC + 2, (N, n_yaw * T, 32), dtype=torch.int32,
+                        device=device, generator=g)
+    return slabs, ry, rxi
+
+
+def phase_slam_kernels_vs_plain(device) -> None:
+    """The lattice kernel at both slab shapes and the bench's match counts,
+    the snapshot entry and map_chunk_sched with recenters: each == its
+    plain version, bit for bit."""
+    before = launches()
+    for N, shape, n_yaw, T in ((3584, (104, 256), 7, 7),
+                               (9984, (96, 128), 5, 5)):
+        args = _random_lattice(device, N, shape, n_yaw, T, N)
+        got = ml.match_lattice(*args, n_yaw)
+        check(torch.equal(got, ml.match_lattice_plain(*args, n_yaw)),
+              f"match_lattice {shape} differs from its plain version")
+    args, g0 = _random_slots(device)
+    pcx, pcy = port.ops.world_to_cell(args[1], args[2], args[4], args[5],
+                                      UL_PROFILE.map.res_m, 250, 250)
+    wy0, wx0 = sm.window_origin(pcx, pcy, GEOM)
+    got = rx.map_snap(g0, *args, wy0, wx0, 4, UL_PROFILE)
+    want = rx.map_snap_plain(g0, *args, wy0, wx0, 4, UL_PROFILE)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "map_snap differs from its plain version")
+    check(not torch.equal(got[1][0, 4], got[1][0, 3]), "no chunk-start roll")
+    # a whole flight's re-raster with the exact path's own recenters
+    f = port.frames_to_torch(random_flights(), device)
+    beams, so, _, _ = rx.carry(f, UL_PROFILE)
+    check(int(so["do"].sum()) >= 2, "the random flights do not recenter")
+    x = [beams, f["x_m"].nan_to_num(0.0), f["y_m"].nan_to_num(0.0),
+         f["yaw_deg"].nan_to_num(0.0), so["ox"].nan_to_num(0.0),
+         so["oy"].nan_to_num(0.0), so["do"], so["sy"], so["sx"]]
+    got = rx.map_chunk_sched(g0, *x, UL_PROFILE)
+    want = rx.replay_exact_plain(g0.clone(), rx.track_schedule(
+        *x, UL_PROFILE), UL_PROFILE)
+    check(torch.equal(got, want), "map_chunk_sched differs from plain")
+    n = {k: v - before[k] for k, v in launches().items()}
+    check(n["match_lattice"] >= 2 and n["replay_exact_snap"] >= 1
+          and n["replay_exact"] >= 1, f"launches {n}")
+    say("kernel_vs_plain", kernel=["match_lattice", "replay_exact_snap",
+                                   "replay_exact (map_chunk_sched)"],
+        match_counts=[3584, 9984], slab_shapes=[[104, 256], [96, 128]],
+        recenters=int(so["do"].sum()) + 2, bit_equal=True, launches=n)
+
+
+def _track_err(a: torch.Tensor, b: np.ndarray) -> list:
+    """Per-flight max abs difference of [B, ...] float arrays."""
+    d = np.abs(a.cpu().numpy().astype(np.float64) - b)
+    return d.reshape(len(d), -1).max(axis=1).tolist()
+
+
+def phase_slam_vs_jax(device) -> None:
+    """slam_replay on the 4 SLAM bench flights against the JAX package's
+    CPU results, in both profiles, within tests/test_torch_slam.py's
+    tolerances: odometry 1e-5, nodes and track 1e-4, grid sums equal."""
+    ref = testdata.reference("slam_bench_ref")
+    frames = testdata.slam_bench_frames(4, device=device)
+    for tag, cfg in SLAM_PROFILES.items():
+        before = launches()
+        res = sp.slam_replay(frames, cfg)
+        n = {k: v - before[k] for k, v in launches().items()}
+        errs = {k: _track_err(getattr(res, k), ref[f"{tag}_{k}"])
+                for k in ("odo_track", "kf_nodes", "track")}
+        sums = testdata.grid_sums(res.grid.cpu().numpy())
+        say("slam_vs_jax", profile=tag, max_abs_err=errs,
+            grid_sums=sums["sums"].tolist(),
+            jax_grid_sums=ref[f"{tag}_sums"].tolist(),
+            weighted_equal=bool(np.array_equal(sums["weighted"],
+                                               ref[f"{tag}_weighted"])),
+            launches=n)
+        for k, tol in (("odo_track", 1e-5), ("kf_nodes", 1e-4),
+                       ("track", 1e-4)):
+            check(max(errs[k]) <= tol, f"slam {tag}: {k} off by "
+                                       f"{max(errs[k])}")
+        for k in ("sums", "weighted"):
+            check(np.array_equal(sums[k], ref[f"{tag}_{k}"]),
+                  f"slam {tag}: grid {k} differ from the JAX package's")
+        check(all(n[k] >= 1 for k in ("match_lattice", "replay_exact_snap",
+                                       "replay_exact")), f"launches {n}")
+
+
+def _lattice_operands(args, cfg, n_xy: int, n_yaw: int):
+    """match_slabs' operands (slabs .. origin_y) -> the lattice kernel's
+    (slabs, ry, rx, n_yaw), as match_slabs makes them."""
+    slabs, r0s, c0s, *scan = args
+    s = cfg.slam
+    cells = sm._lattice_cells(*scan, cfg.map, cfg.tof, n_xy, n_yaw,
+                              s.match_xy_step_m, s.match_yaw_step_deg)
+    ry, rxi = sm.lattice_indices(cells, r0s, c0s, GEOM)
+    return slabs, ry, rxi, n_yaw
+
+
+def _slam_operands(frames, cfg):
+    """The SLAM kernels' operands on this workload, made by the pipeline's
+    own functions: the snapshot entry's (grids, sched, snaps, n_kf) and
+    the lattice kernel's of the first pass-1 round (at the odometry), and
+    the lattice kernel's of the last round's first loop stage (at its
+    matched keyframes)."""
+    s = cfg.slam
+    B, T = frames["x_m"].shape
+    odo, sched = sp._slam_impl(frames, cfg, GEOM, None, None, upto=0)
+    beams, _ = port.ops.extract_beams(frames["grid_mm"], cfg.tof)
+    sl = sp._kf_slots(beams, sched, s.kf_every, cfg)
+    snap, match = sp._round_operands(sl, odo, s.kf_every, cfg, GEOM)
+    zeros = torch.zeros((B, GEOM.prows, GEOM.pcols), dtype=torch.int8,
+                        device=odo.device)
+    snap_ops = rx._snap_operands(zeros, *snap, sl.n_kf, cfg, GEOM) + (
+        sl.n_kf,)
+    _, slabs = rx.map_snap(zeros, *snap, sl.n_kf, cfg, GEOM)
+    pass1 = _lattice_operands([slabs.reshape((-1,) + slabs.shape[2:])]
+                              + match, cfg, s.match_n_xy, s.match_n_yaw)
+    kf = torch.arange(0, T, s.kf_every, device=odo.device)
+    matched = sp._slam_impl(frames, cfg, GEOM, None, None, upto=1)
+    *_, args = sp._loop_candidates(matched[:, kf], beams[:, kf],
+                                   sched["ox"][:, kf], sched["oy"][:, kf],
+                                   cfg, GEOM)
+    loop = _lattice_operands(args, cfg, s.loop_n_xy, s.loop_n_yaw)
+    return snap_ops, {"pass1": pass1, "loop": loop}
+
+
+def _lattice_bound(slabs, ry, rxi, n_yaw: int) -> dict:
+    """The lattice kernel's bound on these operands.  Bytes: the index
+    rows and the scores, each once, and every distinct 32-byte slab
+    sector that the in-slab (row, column) pair of some candidate and beam
+    refers to.  Operations: MATCH_LOOKUP_OPS int32 ones per in-slab
+    lookup (one off the slab adds nothing to its score)."""
+    N, SR, SC = slabs.shape
+    NB = ry.shape[2]
+    T = ry.shape[1] // n_yaw
+    check(SC % 32 == 0, f"slab width {SC}")
+    per_row = SC // 32
+    sectors = lookups = 0
+    for n0 in range(0, N, 256):
+        y = ry[n0:n0 + 256].reshape(-1, n_yaw, T, 1, NB).long()
+        x = rxi[n0:n0 + 256].reshape(-1, n_yaw, 1, T, NB).long()
+        n = y.shape[0]
+        ok = (y >= 0) & (y < SR) & (x >= 0) & (x < SC)
+        base = torch.arange(n, device=y.device).view(n, 1, 1, 1, 1) * SR
+        sec = (base + y) * per_row + torch.div(x, 32, rounding_mode="floor")
+        mark = torch.zeros(n * SR * per_row, dtype=torch.bool,
+                           device=y.device)
+        mark[sec.expand(ok.shape)[ok]] = True
+        sectors += int(mark.sum())
+        lookups += int(ok.sum())
+    nbytes = 32 * sectors + 4 * (ry.numel() + rxi.numel()) + 4 * (
+        N * n_yaw * T * T)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = lookups * MATCH_LOOKUP_OPS / INT32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": lookups * MATCH_LOOKUP_OPS,
+            "lookups": lookups, "lookups_all": N * n_yaw * T * T * NB,
+            "slab_sectors": sectors, "slab_sectors_all": N * SR * per_row}
+
+
+def _slam_kernels_alone(frames, cfg, smi: str, busy: dict) -> dict:
+    """The lattice kernel and the snapshot entry alone on this SLAM
+    workload's operands (_slam_operands): time against the plain version,
+    error, bound.  ms is the card's time per launch: queued launches for
+    the lattice kernel, and for the snapshot entry its device time per
+    launch in `busy`, the profiled replay (_profiled_busy); call_ms is a
+    CUDA-event span around one call, host work included.  Returns their
+    entries of the kernels line (without launches)."""
+    snap_ops, lattice = _slam_operands(frames, cfg)
+    out = {}
+    for stage, (slabs, ry, rxi, n_yaw) in lattice.items():
+        ms = _time_queued(lambda: ml.match_lattice(slabs, ry, rxi, n_yaw))
+        call_ms = _time_call(lambda: ml.match_lattice(slabs, ry, rxi, n_yaw),
+                             5)
+        plain_ms = _time_call(
+            lambda: ml.match_lattice_plain(slabs, ry, rxi, n_yaw), 1)
+        err = float((ml.match_lattice(slabs, ry, rxi, n_yaw)
+                     - ml.match_lattice_plain(slabs, ry, rxi, n_yaw))
+                    .abs().max())
+        check(err == 0, f"match_lattice vs plain max abs err {err}")
+        bound = _lattice_bound(slabs, ry, rxi, n_yaw)
+        say("kernel_alone", kernel="match_lattice", stage=stage,
+            N=slabs.shape[0], slab=list(slabs.shape[1:]), ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, **bound, card=smi)
+        if stage == "pass1":
+            out["match_lattice"] = {"max_abs_err": err, "ms": ms,
+                                    "plain_ms": plain_ms, **bound}
+    grids0, sched, snaps, n_kf = snap_ops
+    snaps_k, snaps_p = torch.empty_like(snaps), torch.empty_like(snaps)
+    g_k, g_p = grids0.clone(), grids0.clone()
+    call_ms = _time_call(lambda: rx.replay_exact_snap(
+        g_k, sched, snaps_k, n_kf, cfg), 5, lambda: g_k.copy_(grids0))
+    # its wrapper waits on the card twice (the slab check, the recenter
+    # test), so the card's own time comes from the profiled replay
+    key = next(k for k in busy["kernel_device_ms"]
+               if "replay_exact_kernel<true>" in k)
+    profiled = busy["kernel_launches"][key]
+    ms = busy["kernel_device_ms"][key] / profiled
+    plain_ms = _time_call(lambda: rx.replay_exact_plain(
+        g_p, sched, cfg, GEOM, snaps_p, n_kf), 1, lambda: g_p.copy_(grids0))
+    err = max(int((g_k.to(torch.int16) - g_p.to(torch.int16)).abs().max()),
+              int((snaps_k.to(torch.int16)
+                   - snaps_p.to(torch.int16)).abs().max()))
+    check(err == 0, f"replay_exact_snap vs plain max abs err {err}")
+    sectors, cells = _exact_touched(sched, snaps.shape[2:])
+    nbytes = (sched.numel() * sched.element_size() + 2 * 32 * sectors
+              + snaps.numel())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = cells * EXACT_CELL_OPS[1] / INT32_OPS_PER_S
+    bound = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bound_bytes": nbytes, "bound_ops": cells * EXACT_CELL_OPS[1]}
+    say("kernel_alone", kernel="replay_exact_snap", stage="pass1",
+        B=sched.shape[0], slots=sched.shape[1], ms=ms,
+        ms_profiled_launches=profiled, call_ms=call_ms,
+        plain_ms=plain_ms,
+        max_abs_err=err, grid_sectors=sectors, cells=cells, **bound,
+        card=smi)
+    out["replay_exact_snap"] = {"max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, **bound}
+    return out
+
+
+# the SLAM stages' functions, timed by _stage_seconds
+STAGES = {"pass0": sp._odo_and_schedule, "pass1": sp._map_pass_nofb,
+          "loop": sp._loop_stage, "gn": sp._build_and_solve,
+          "pass3": rx.map_chunk_sched}
+
+
+def _stage_seconds(frames, cfg, reps: int = 3) -> dict:
+    """Seconds per SLAM stage in one slam_replay, each summed over its
+    calls, and the rest ("other": the glue between the stages), from the
+    fastest of `reps` replays.  Python's sys.monitoring reports each call
+    of a STAGES function and its return, and the card is synchronised at
+    both, so a stage's device work counts in it; the pipeline carries no
+    timing hook."""
+    mon = sys.monitoring
+    tool = mon.PROFILER_ID
+    names = {fn.__code__: name for name, fn in STAGES.items()}
+    started, secs = {}, {}
+
+    def on_start(code, _offset):
+        torch.cuda.synchronize()
+        started[code] = time.perf_counter()
+
+    def on_return(code, _offset, _value):
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - started.pop(code)
+        secs[names[code]] = secs.get(names[code], 0.0) + dt
+
+    mon.use_tool_id(tool, "chip_smoke")
+    mon.register_callback(tool, mon.events.PY_START, on_start)
+    mon.register_callback(tool, mon.events.PY_RETURN, on_return)
+    for code in names:
+        mon.set_local_events(tool, code,
+                             mon.events.PY_START | mon.events.PY_RETURN)
+    runs = []
+    try:
+        for _ in range(reps):
+            secs.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp.slam_replay(frames, cfg)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            runs.append({**secs, "other": total - sum(secs.values()),
+                         "total": total})
+    finally:
+        for code in names:
+            mon.set_local_events(tool, code, 0)
+        mon.register_callback(tool, mon.events.PY_START, None)
+        mon.register_callback(tool, mon.events.PY_RETURN, None)
+        mon.free_tool_id(tool)
+    return min(runs, key=lambda r: r["total"])
+
+
+def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
+                     reps: int = 3) -> dict:
+    """bench.py's slam line for profile `tag` ("ul": B=128, "rt": B=256):
+    best of `reps` after a warm-up, the checksum beside the TPU record and
+    the JAX package's CPU result, per-stage seconds, launches, device busy
+    ms and idle share.  For "ul", also the SLAM kernels alone; returns
+    their kernels-line entries."""
+    cfg = SLAM_PROFILES[tag]
+    frames = testdata.slam_bench_frames(B, T, device=device)
+    torch.cuda.synchronize()
+    reset_launches()                      # count this path's run only
+    times = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        res = sp.slam_replay(frames, cfg)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    n_launch = launches()
+    for k in ("match_lattice", "replay_exact_snap", "replay_exact"):
+        check(n_launch[k] >= reps + 1, f"slam {tag} never launched {k}")
+    ck = checksum(res.grid)
+    ref = testdata.reference("slam_bench_ref")
+    want = checksum(torch.from_numpy(np.concatenate(
+        [ref[f"{tag}_sums"]] * (B // 4))))
+    check(B % 4 == 0 and ck == want,
+          f"slam {tag} checksum {ck} != the JAX package's CPU {want}")
+    dt = min(times)
+    stages = _stage_seconds(frames, cfg)
+    busy = _profiled_busy(lambda: sp.slam_replay(frames, cfg),
+                          ("replay_exact", "match_lattice"))
+    say("bench", metric=METRIC[tag], value=B * T / dt, unit="frames/s",
+        profile=cfg.name, checksum=ck, checksum_ref=CHECKSUM_REF[tag],
+        checksum_matches_ref=ck == CHECKSUM_REF[tag],
+        checksum_jax_cpu=want, rep_seconds=times,
+        stage_seconds=stages,
+        launches={k: v for k, v in n_launch.items() if v},
+        launches_per_replay={k: v / (reps + 1) for k, v in n_launch.items()
+                             if v},
+        device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
+        kernel_device_ms=busy["kernel_device_ms"],
+        kernel_launches=busy["kernel_launches"], host_top=busy["host_top"],
+        profiled_wall_s=busy["profiled_wall_s"],
+        device_idle_share=(None if busy["busy_ms"] is None
+                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        B=B, T=T, reps=reps, card=smi)
+    if tag != "ul":
+        return {}
+    alone = _slam_kernels_alone(frames, cfg, smi, busy)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {name: {"name": name, "route": "cuda", **KERNELS[name],
+                   "launches": n_launch[name],
+                   **{k: alone[name][k] for k in keys}, "library_ms": None}
+            for name in ("match_lattice", "replay_exact_snap")}
+
+
+def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
+                    reps: int = 3) -> None:
+    """bench.py's ekf line: the fusion replay of the 4 SLAM bench flights
+    replicated to B=1024; checksum = the int32 sum of the x track cast to
+    int32, against the JAX package's CPU track."""
+    frames = testdata.slam_bench_frames(B, T, device=device)
+    times = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        _, track = fu.replay_fusion_batched(frames, UL_PROFILE)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    ck = checksum(track["x"].to(torch.int32))
+    x = testdata.reference("slam_bench_ref")["ekf_x"]
+    want = checksum(torch.from_numpy(np.concatenate([x] * (B // 4))).to(
+        torch.int32))
+    err = float(np.abs(track["x"][:4].cpu().numpy() - x).max())
+    check(ck == want and err <= 1e-5,
+          f"ekf checksum {ck} (JAX CPU {want}), x off by {err}")
+    busy = _profiled_busy(lambda: fu.replay_fusion_batched(frames,
+                                                           UL_PROFILE), ())
+    dt = min(times)
+    say("bench", metric=METRIC["ekf"], value=B * T / dt, unit="frames/s",
+        checksum=ck, checksum_ref=CHECKSUM_REF["ekf"],
+        checksum_matches_ref=ck == CHECKSUM_REF["ekf"], checksum_jax_cpu=want,
+        max_abs_err_x_vs_jax_cpu=err, rep_seconds=times,
+        device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
+        host_top=busy["host_top"],
+        device_idle_share=(None if busy["busy_ms"] is None
+                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        B=B, T=T, reps=reps, card=smi)
 
 
 def _jax_package_loaded() -> list:
@@ -579,10 +1076,16 @@ def main() -> int:
     phase_build()
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
+    phase_slam_kernels_vs_plain(device)
     phase_golden(device)
     phase_resume(device)
+    phase_slam_vs_jax(device)
     kernels = [phase_bench(device, smi, "residentx"),
                phase_bench(device, smi, "hybridx", plain_reps=1)]
+    slam = phase_slam_bench(device, smi, "ul", 128)
+    phase_slam_bench(device, smi, "rt", 256)
+    phase_ekf_bench(device, smi)
+    kernels += [slam["match_lattice"], slam["replay_exact_snap"]]
     loaded = _jax_package_loaded()
     check(not loaded, f"the port imported jax or the JAX package: {loaded}")
     print(json.dumps({"kernels": kernels}), flush=True)

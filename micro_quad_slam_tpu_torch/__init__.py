@@ -10,9 +10,13 @@ Ported so far: the batched mapping replay (replay/mapping.py) in its
 bit-exact mode, with beam extraction and the ToF filter (ops/beams.py),
 the exact scan update and recentering (ops/raycast.py) and the
 whole-replay schedule and Hopper kernel (ops/residentx.py,
-csrc/replay_exact.cu); and in its cone and hybrid production modes, with
+csrc/replay_exact.cu); in its cone and hybrid production modes, with
 the dense inverse sensor model (ops/conemode.py) and their schedule and
-Hopper kernel (ops/conex.py, csrc/replay_cone.cu).
+Hopper kernel (ops/conex.py, csrc/replay_cone.cu); the EKF fusion replay
+(ops/ekf.py, replay/fusion.py); and the SLAM replay (slam/pipeline.py)
+with its pose graph (slam/posegraph.py), scan matcher (ops/scanmatch.py)
+and lattice kernel (ops/matchlattice.py, csrc/match_lattice.cu), and the
+exact kernel's snapshot and scheduled-chunk entries (ops/residentx.py).
 
 The port imports nothing of the JAX package, not even its modules that
 do not import jax: it keeps its own copy of the configuration

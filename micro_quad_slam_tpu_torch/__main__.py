@@ -3,10 +3,16 @@
   python -m micro_quad_slam_tpu_torch replay --log scanlog.bin [more.bin ...]
       [--kernel xla|residentx|cone|hybrid|conex|hybridx|resident_cone|...]
       [--profile ul|cl] [--device cuda|cpu] [--out map.npy]
+  python -m micro_quad_slam_tpu_torch fusion --log scanlog.bin [more.bin ...]
+      [--profile ul|cl] [--device cuda|cpu] [--out track.csv]
+  python -m micro_quad_slam_tpu_torch slam --log scanlog.bin [more.bin ...]
+      [--profile ul|cl|ul-rt] [--kf-every N] [--gn-iters N]
+      [--track track.csv] [--out map.npy] [--device cuda|cpu]
 
-The counterpart of `mqs replay` (micro_quad_slam_tpu/cli.py) for scanlog
-input; it prints the same per-flight summary line.  It runs on the CUDA
-device; without one it exits with status 2 unless given --device cpu.
+The counterparts of `mqs replay`, `mqs fusion` and `mqs slam`
+(micro_quad_slam_tpu/cli.py) for scanlog input; they print the same
+per-flight summary lines.  They run on the CUDA device; without one they
+exit with status 2 unless given --device cpu.
 """
 
 from __future__ import annotations
@@ -24,8 +30,20 @@ KERNELS = PER_FRAME_KERNELS + EXACT_KERNELS + tuple(CONEX_KERNELS)
 
 
 def _profile(name: str):
-    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
-    return CL_PROFILE if name == "cl" else UL_PROFILE
+    from micro_quad_slam_tpu_torch.utils import config
+    return {"ul": config.UL_PROFILE, "cl": config.CL_PROFILE,
+            "ul-rt": config.UL_RT_PROFILE}[name]
+
+
+def _device(name: str, what: str):
+    """The torch device, or None (after an error line) when CUDA is asked
+    for and absent."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"error: no CUDA device found; pass --device cpu to {what} on "
+              f"the CPU", file=sys.stderr)
+        return None
+    return device
 
 
 def _stack_logs(paths):
@@ -64,10 +82,8 @@ def cmd_replay(args) -> int:
     from micro_quad_slam_tpu_torch.replay.mapping import (
         frames_to_torch, replay_mapping_batched)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("error: no CUDA device found; pass --device cpu to replay on "
-              "the CPU", file=sys.stderr)
+    device = _device(args.device, "replay")
+    if device is None:
         return 2
     frames, lens = _stack_logs(args.log)
     state, outs = replay_mapping_batched(
@@ -88,6 +104,106 @@ def cmd_replay(args) -> int:
             p = _indexed_path(args.out, i, B)
             np.save(p, grid)
             print(f"{tag}map -> {p}")
+    return 0
+
+
+def _equal_length_logs(paths):
+    """Scanlogs of equal length -> (frames dict of [B, T] numpy arrays with
+    the EKF inputs, the logs), or (None, lengths) when they differ: padded
+    frames would enter the EKF and the keyframe graph."""
+    from micro_quad_slam_tpu_torch.formats.scanlog import read_scanlog
+    from micro_quad_slam_tpu_torch.replay.fusion import fusion_arrays
+    from micro_quad_slam_tpu_torch.replay.mapping import scanlog_to_arrays
+
+    logs = [read_scanlog(p) for p in paths]
+    if len({len(lg) for lg in logs}) > 1:
+        return None, [len(lg) for lg in logs]
+    dicts = [{**scanlog_to_arrays(lg), **fusion_arrays(lg)} for lg in logs]
+    return {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}, logs
+
+
+def cmd_fusion(args) -> int:
+    from micro_quad_slam_tpu_torch.replay.fusion import (
+        pose_rmse, replay_fusion_batched)
+    from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
+
+    device = _device(args.device, "run the EKF")
+    if device is None:
+        return 2
+    frames, logs = _equal_length_logs(args.log)
+    if frames is None:
+        print(f"fusion with several logs needs equal frame counts, got "
+              f"{logs}", file=sys.stderr)
+        return 2
+    _, track = replay_fusion_batched(frames_to_torch(frames, device),
+                                     _profile(args.profile))
+    track = {k: v.cpu().numpy() for k, v in track.items()}
+    B, T = frames["x_m"].shape
+    for b in range(B):
+        tag = f"[{b}] " if B > 1 else ""
+        rmse = pose_rmse({k: v[b] for k, v in track.items()},
+                         {k: v[b] for k, v in frames.items()})
+        used = int(track["flow_used"][b].sum())
+        print(f"{tag}EKF replay: {T} frames, flow fused on {used}; pose RMSE "
+              f"vs logged track: "
+              f"{'n/a' if np.isnan(rmse) else f'{rmse * 100:.2f} cm'}")
+        if args.out:
+            p = _indexed_path(args.out, b, B)
+            with open(p, "w") as f:
+                f.write("t_ms,x,y,z,vx,vy,vz,yaw_rad,flow_used\n")
+                for i in range(T):
+                    f.write(f"{int(frames['scan_ms'][b, i])}," + ",".join(
+                        f"{float(track[k][b, i]):.4f}"
+                        for k in ("x", "y", "z", "vx", "vy", "vz", "yaw"))
+                        + f",{int(track['flow_used'][b, i])}\n")
+            print(f"{tag}track -> {p}")
+    return 0
+
+
+def cmd_slam(args) -> int:
+    from micro_quad_slam_tpu_torch.ops.raycast import logical_grid
+    from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
+    from micro_quad_slam_tpu_torch.slam.pipeline import slam_replay
+
+    device = _device(args.device, "run SLAM")
+    if device is None:
+        return 2
+    frames, logs = _equal_length_logs(args.log)
+    if frames is None:
+        print(f"slam with several logs needs equal frame counts, got {logs}",
+              file=sys.stderr)
+        return 2
+    res = slam_replay(frames_to_torch(frames, device), _profile(args.profile),
+                      kf_every=args.kf_every, gn_iters=args.gn_iters)
+    grids = logical_grid(res.grid).cpu().numpy()
+    track, odo = res.track.cpu().numpy(), res.odo_track.cpu().numpy()
+    B, T = frames["x_m"].shape
+    n_kf = int(res.kf_idx.shape[0])
+    for b in range(B):
+        tag = f"[{b}] " if B > 1 else ""
+        msg = (f"{tag}SLAM: {T} frames, {n_kf} keyframes; "
+               f"occupied={int((grids[b] > 10).sum())}")
+        truth = np.stack([frames["x_m"][b], frames["y_m"][b]], -1)
+        if np.isfinite(truth).all():
+            oe = np.hypot(*(odo[b, :, :2] - truth).T).mean()
+            se = np.hypot(*(track[b, :, :2] - truth).T).mean()
+            msg += (f"; mean err vs logged track: odom {oe * 100:.1f} cm -> "
+                    f"slam {se * 100:.1f} cm")
+        print(msg)
+        if args.out:
+            p = _indexed_path(args.out, b, B)
+            np.save(p, grids[b])
+            print(f"{tag}corrected map -> {p}")
+        if args.track:
+            p = _indexed_path(args.track, b, B)
+            with open(p, "w") as f:
+                f.write("t_ms,x,y,yaw_rad,odo_x,odo_y,odo_yaw_rad\n")
+                for i in range(T):
+                    t, o = track[b, i], odo[b, i]
+                    f.write(f"{int(frames['scan_ms'][b, i])},{t[0]:.4f},"
+                            f"{t[1]:.4f},{t[2]:.4f},{o[0]:.4f},{o[1]:.4f},"
+                            f"{o[2]:.4f}\n")
+            print(f"{tag}corrected track -> {p}")
     return 0
 
 
@@ -117,6 +233,34 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; without a CUDA "
                          "device pass --device cpu)")
     pr.set_defaults(fn=cmd_replay)
+
+    device_help = "torch device (default: cuda; without a CUDA device pass " \
+                  "--device cpu)"
+    pf = sub.add_parser("fusion", help="scanlog -> EKF pose track")
+    pf.add_argument("--log", nargs="+", required=True,
+                    help="one or more scanlog.bin files of equal length, "
+                         "replayed as one batch")
+    pf.add_argument("--out", help="write each flight's track as CSV")
+    pf.add_argument("--profile", default="ul", choices=("ul", "cl", "ul-rt"))
+    pf.add_argument("--device", default="cuda", help=device_help)
+    pf.set_defaults(fn=cmd_fusion)
+
+    ps = sub.add_parser(
+        "slam", help="scanlog -> drift-corrected map and track",
+        epilog="--save-state / --resume (the JAX CLI's map checkpoints) wait "
+               "for the port's checkpoint module and are not offered yet.")
+    ps.add_argument("--log", nargs="+", required=True,
+                    help="one or more scanlog.bin files of equal length, "
+                         "one batch")
+    ps.add_argument("--out", help="write each flight's corrected logical "
+                                  "grid as .npy")
+    ps.add_argument("--profile", default="ul", choices=("ul", "cl", "ul-rt"))
+    ps.add_argument("--kf-every", type=int, default=10)
+    ps.add_argument("--gn-iters", type=int, default=8)
+    ps.add_argument("--track", help="write the corrected and odometry pose "
+                                    "tracks as CSV")
+    ps.add_argument("--device", default="cuda", help=device_help)
+    ps.set_defaults(fn=cmd_slam)
     args = p.parse_args(argv)
     return args.fn(args)
 

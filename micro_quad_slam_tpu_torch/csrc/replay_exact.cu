@@ -15,6 +15,16 @@
 // The grids and the recenter scratch are the caller's; the kernel
 // allocates nothing and works in place.
 //
+// The snapshot entry (mqs_replay_exact_snap) also replaces
+// micro_quad_slam_tpu/ops/pallas_residentx.py::_residentx_snap_kernel, the
+// SLAM pass-1 keyframe replay.  Its frames are keyframe slots in chunks of
+// n_kf; at the first slot of every chunk, after that slot's recenter and
+// before its rays (the TPU order: _rx_prologue's recenter, then the
+// snapshot copies, then the group body), it copies the [SR, SC] slab at
+// each of the chunk's n_kf slab origins (header words 6, 7 of the slots)
+// into snaps[b, slot].  The matcher scores every slot of the chunk against
+// those chunk-start slabs.
+//
 // What bounds it on this card: not bytes or arithmetic.  A frame touches
 // at most 32 rays x 42 cells of a 389,120-byte grid, so the whole B=1024 x
 // T=256 replay moves well under a gigabyte.  The cost is latency: each ray
@@ -59,10 +69,30 @@ constexpr int kWords = kHdr + kRays * kRayWords;
 
 // header words (ops/residentx.py)
 constexpr int kPcy = 0, kPcx = 1, kDo = 2, kRsy = 3, kRsx = 4, kAny = 5;
+constexpr int kR0s = 6, kC0s = 7;   // snapshot slab origin (snap entry only)
 
+struct Snap {
+  int8_t* out;   // [B, T, rows, cols]
+  int n_kf, rows, cols;
+};
+
+// Copy the [rows, cols] slab at (r0, c0) of grid g to dst, 16 bytes per
+// thread and step (c0 and cols are multiples of 16, checked by the entry).
+__device__ inline void copy_slab(const int8_t* g, int8_t* dst, int r0, int c0,
+                                 int rows, int cols, int pcols) {
+  const int per_row = cols / 16;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i - r * per_row) * 16;
+    *reinterpret_cast<int4*>(dst + r * cols + c) =
+        *reinterpret_cast<const int4*>(g + (r0 + r) * pcols + c0 + c);
+  }
+}
+
+template <bool kSnap>
 __global__ void __launch_bounds__(kThreads)
 replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
-                    int T, Geom geo, int lo_min, int lo_max, int free_dec) {
+                    int T, Geom geo, int lo_min, int lo_max, int free_dec,
+                    Snap snap) {
   __shared__ int32_t w[kWords];
   const long long plane = static_cast<long long>(geo.prows) * geo.pcols;
   int8_t* g = grids + blockIdx.x * plane;
@@ -75,6 +105,17 @@ replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
     __syncthreads();
 
     if (w[kDo]) recenter(g, tmp, w[kRsy], w[kRsx], geo);
+
+    if (kSnap && t % snap.n_kf == 0) {
+      const long long slab = static_cast<long long>(snap.rows) * snap.cols;
+      for (int f = t; f < min(t + snap.n_kf, T); ++f) {
+        const int32_t* wf = s + static_cast<long long>(f) * kWords;
+        copy_slab(g, snap.out + (static_cast<long long>(blockIdx.x) * T + f) *
+                                    slab,
+                  wf[kR0s], wf[kC0s], snap.rows, snap.cols, geo.pcols);
+      }
+      __syncthreads();                   // read the slabs before any ray
+    }
 
     if (w[kAny]) {
       int8_t* pose = g + w[kPcy] * geo.pcols + w[kPcx];
@@ -115,8 +156,33 @@ extern "C" int mqs_replay_exact(void* grids, const void* sched, void* scratch,
   if (words != kWords || pcols % 16 != 0 || B <= 0 || T <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom geo{prows, pcols, pad, width, height};
-  replay_exact_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(grids), static_cast<const int32_t*>(sched),
-      static_cast<int8_t*>(scratch), T, geo, lo_min, lo_max, free_dec);
+  replay_exact_kernel<false>
+      <<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int8_t*>(grids), static_cast<const int32_t*>(sched),
+          static_cast<int8_t*>(scratch), T, geo, lo_min, lo_max, free_dec,
+          Snap{nullptr, 1, 0, 0});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mqs_replay_exact plus the chunk-start snapshots: snaps int8
+// [B, T, rows, cols] receives, for every slot f, the slab at header words
+// (6, 7) of f, taken at the first slot of f's chunk of n_kf slots (after
+// its recenter, before its rays).  Every slab origin must lie inside the
+// padded grid with its column a multiple of 16; cols too.
+extern "C" int mqs_replay_exact_snap(void* grids, const void* sched,
+                                     void* scratch, void* snaps, int B, int T,
+                                     int words, int prows, int pcols, int pad,
+                                     int width, int height, int lo_min,
+                                     int lo_max, int free_dec, int n_kf,
+                                     int rows, int cols, void* stream) {
+  if (words != kWords || pcols % 16 != 0 || cols % 16 != 0 || B <= 0 ||
+      T <= 0 || n_kf <= 0 || rows <= 0 || rows > prows || cols > pcols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom geo{prows, pcols, pad, width, height};
+  replay_exact_kernel<true>
+      <<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<int8_t*>(grids), static_cast<const int32_t*>(sched),
+          static_cast<int8_t*>(scratch), T, geo, lo_min, lo_max, free_dec,
+          Snap{static_cast<int8_t*>(snaps), n_kf, rows, cols});
   return static_cast<int>(cudaGetLastError());
 }

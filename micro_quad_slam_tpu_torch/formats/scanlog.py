@@ -32,8 +32,8 @@ assert SCANREC_DTYPE.itemsize == SCANREC_BYTES
 
 @dataclasses.dataclass
 class ScanLog:
-    """The replay's fields of T records; `grid_mm` is the u16 ToF grid
-    [T, 4, 8, 8] in sensor order F, R, B, L."""
+    """The replay's and the EKF's fields of T records; `grid_mm` is the
+    u16 ToF grid [T, 4, 8, 8] in sensor order F, R, B, L."""
 
     x_m: np.ndarray          # f32 [T]
     y_m: np.ndarray          # f32 [T]
@@ -43,6 +43,9 @@ class ScanLog:
     state: np.ndarray        # u8  [T]
     sys_health: np.ndarray   # u32 [T]
     grid_mm: np.ndarray      # u16 [T, 4, 8, 8]
+    scan_ms: np.ndarray      # u32 [T] sensor-side clock
+    of_rate_y: np.ndarray    # f32 [T]
+    rf_m: np.ndarray         # f32 [T] rangefinder distance
 
     def __len__(self) -> int:
         return int(self.x_m.shape[0])
@@ -80,4 +83,6 @@ def read_scanlog(src: Union[str, bytes, BinaryIO],
         of_rate_x=field("of_rate_x"), of_q=field("of_q"),
         state=field("state"), sys_health=field("sys_health"),
         grid_mm=np.ascontiguousarray(
-            rec["grid_raw"].view("<u2").reshape(-1, 4, 8, 8)))
+            rec["grid_raw"].view("<u2").reshape(-1, 4, 8, 8)),
+        scan_ms=field("scan_ms"), of_rate_y=field("of_rate_y"),
+        rf_m=field("rf_m"))

@@ -259,6 +259,15 @@ def _window_index(pcx, pcy, geom: GridGeom):
     return n[:, None, None], rr[:, :, None], cc[:, None, :]
 
 
+def cut_windows(padded_grids, wy0, wx0, rows: int, cols: int):
+    """[N, rows, cols] slices of padded grids [N, PR, PC] at (wy0, wx0)."""
+    dev = padded_grids.device
+    rr = wy0.long()[:, None] + torch.arange(rows, device=dev)
+    cc = wx0.long()[:, None] + torch.arange(cols, device=dev)
+    n = torch.arange(padded_grids.shape[0], device=dev)
+    return padded_grids[n[:, None, None], rr[:, :, None], cc[:, None, :]]
+
+
 def apply_rays_(padded_grid: torch.Tensor, rays: dict,
                 cfg: MapConfig = MapConfig(),
                 geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:

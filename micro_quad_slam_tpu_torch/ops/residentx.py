@@ -11,7 +11,9 @@ it) and then makes every ray of every (quad, frame) at once.  It packs
 them into one int32 tensor [B, T, WORDS]:
 
     word  0..7    header: pose row, pose col (padded-grid cells), do,
-                  recenter rows sy, recenter cols sx, any-valid-ray, 0, 0
+                  recenter rows sy, recenter cols sx, any-valid-ray, and
+                  (SLAM snapshots only, else 0) the snapshot slab's origin
+                  row and column
     word  8+4r..  ray r (reference order F0..F7, R0..R7, B0..B7, L0..L7):
                   ex, ey (endpoint relative to the pose cell), end_delta,
                   valid
@@ -20,6 +22,15 @@ them into one int32 tensor [B, T, WORDS]:
 it launches csrc/replay_exact.cu, on a CPU tensor it runs the plain
 version (`replay_exact_plain`, the same frame loop in torch ops), and on
 any other device it raises.
+
+The SLAM pipeline's entries (counterparts of pallas_residentx.py's
+pallas_map_chunk_sched, pallas_map_snap, pallas_map_chunk and
+pallas_map_track_x, and of pallas_resident.py's pallas_map_track) build
+their schedule from given poses and origins with every frame enabled
+(`track_schedule`).  `map_chunk_sched` applies it with `replay_exact`;
+`map_snap` with `replay_exact_snap`, the kernel's snapshot entry, which
+also copies each keyframe chunk's start-of-chunk map slabs for the
+matcher.
 """
 
 from __future__ import annotations
@@ -36,12 +47,13 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
     apply_rays_,
+    cut_windows,
     make_rays,
     recenter_apply,
 )
 
 HDR = 8
-H_PCY, H_PCX, H_DO, H_RSY, H_RSX, H_ANY = range(6)
+H_PCY, H_PCX, H_DO, H_RSY, H_RSX, H_ANY, H_R0S, H_C0S = range(8)
 RAY_WORDS = 4
 WORDS = HDR + 32 * RAY_WORDS
 
@@ -131,22 +143,29 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
     Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
     [B, T, ...], final (origin_x, origin_y, inited, filt))."""
     beams, so, outs, final = carry(frames, cfg, state0)
-    x, y = frames["x_m"], frames["y_m"]
-    B, T = x.shape
     # everything below is carry-free: vectorized over [B, T]
-    rays = make_rays(beams, x, y, frames["yaw_deg"], so["ox"], so["oy"],
-                     so["enabled"], cfg.map, cfg.tof)
+    rays = make_rays(beams, frames["x_m"], frames["y_m"], frames["yaw_deg"],
+                     so["ox"], so["oy"], so["enabled"], cfg.map, cfg.tof)
+    return _pack(rays, so["do"], so["sy"], so["sx"], geom), outs, final
+
+
+def _pack(rays: dict, do, sy, sx, geom: GridGeom, r0s=None, c0s=None):
+    """make_rays' output for [B, T] frames plus their recenter flags and
+    shifts (and the snapshot slab origins, if any) -> sched int32
+    [B, T, WORDS]."""
     valid = rays["valid"]
+    B, T = valid.shape[:2]
     zero = torch.zeros_like(rays["pcx"])
     header = torch.stack([
         rays["pcy"] + geom.pad, rays["pcx"] + geom.pad,
-        so["do"].to(torch.int32), so["sy"], so["sx"],
-        valid.any(dim=-1).to(torch.int32), zero, zero], dim=-1)
+        do.to(torch.int32), sy.to(torch.int32), sx.to(torch.int32),
+        valid.any(dim=-1).to(torch.int32),
+        zero if r0s is None else r0s.to(torch.int32),
+        zero if c0s is None else c0s.to(torch.int32)], dim=-1)
     ray_words = torch.stack([rays["ex"], rays["ey"], rays["end_delta"],
                              valid.to(torch.int32)], dim=-1)
-    sched = torch.cat([header, ray_words.reshape(B, T, 32 * RAY_WORDS)],
-                      dim=-1).contiguous()
-    return sched, outs, final
+    return torch.cat([header, ray_words.reshape(B, T, 32 * RAY_WORDS)],
+                     dim=-1).contiguous()
 
 
 def _frame_rays(w: torch.Tensor, geom: GridGeom) -> dict:
@@ -158,19 +177,32 @@ def _frame_rays(w: torch.Tensor, geom: GridGeom) -> dict:
 
 
 def replay_exact_plain(grids: torch.Tensor, sched: torch.Tensor,
-                       cfg: PipelineConfig,
-                       geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:
+                       cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
+                       snaps: torch.Tensor | None = None,
+                       n_kf: int = 1) -> torch.Tensor:
     """Plain torch version of the kernel, on any device: per frame, the
-    recenter (recenter_apply) then the window update (window_scan_update)
-    for the whole [B] batch.  Updates grids in place and returns them."""
+    recenter (recenter_apply, on the quads whose do is set) then the
+    window update (window_scan_update) for the whole [B] batch.  With
+    `snaps` [B, T, rows, cols] it is the plain version of the snapshot
+    entry as well: at every n_kf-th frame, after its recenter and before
+    its rays, the slab at header words (H_R0S, H_C0S) of each of the next
+    n_kf frames is copied to snaps[:, frame].  Updates grids (and snaps)
+    in place and returns grids."""
     T = sched.shape[1]
     do_any = sched[..., H_DO].any(dim=0).tolist()      # one host sync
     live = sched[..., H_ANY].any(dim=0).tolist()
     for t in range(T):
         w = sched[:, t]
         if do_any[t]:
-            grids.copy_(recenter_apply(grids, w[:, H_RSX], w[:, H_RSY],
-                                       cfg.map, geom))
+            moved = recenter_apply(grids, w[:, H_RSX], w[:, H_RSY], cfg.map,
+                                   geom)
+            grids.copy_(torch.where(w[:, H_DO, None, None] != 0, moved,
+                                    grids))
+        if snaps is not None and t % n_kf == 0:
+            for f in range(t, min(t + n_kf, T)):
+                snaps[:, f] = cut_windows(grids, sched[:, f, H_R0S],
+                                          sched[:, f, H_C0S],
+                                          snaps.shape[2], snaps.shape[3])
         if live[t]:
             apply_rays_(grids, _frame_rays(w, geom), cfg.map, geom)
     return grids
@@ -235,6 +267,171 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
 
 
 replay_exact.launches = 0
+
+
+def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
+                      snaps: torch.Tensor, n_kf: int, cfg: PipelineConfig,
+                      geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:
+    """replay_exact plus the chunk-start snapshots (see replay_exact_plain):
+    grids int8 [B, PR, PC] and snaps int8 [B, T, rows, cols] are updated in
+    place.  A CUDA tensor goes to the kernel's snapshot entry
+    (csrc/replay_exact.cu, mqs_replay_exact_snap), a CPU tensor to
+    replay_exact_plain; any other device raises.  Every slab must lie in
+    the padded grid with its column a multiple of 16.
+    `replay_exact_snap.launches` counts the kernel launches."""
+    check_supported(cfg, geom)
+    check_operands(grids, sched, geom)
+    B, T = sched.shape[:2]
+    if snaps.dtype != torch.int8 or snaps.dim() != 4 or \
+            tuple(snaps.shape[:2]) != (B, T) or not snaps.is_contiguous() \
+            or snaps.device != grids.device:
+        raise ValueError(f"snaps must be contiguous int8 [B, T, rows, cols] "
+                         f"on {grids.device}, got {tuple(snaps.shape)} "
+                         f"{snaps.dtype} on {snaps.device}")
+    rows, cols = snaps.shape[2:]
+    r0, c0 = sched[..., H_R0S], sched[..., H_C0S]
+    if cols % 16 or not bool(((r0 >= 0) & (r0 + rows <= geom.prows)
+                              & (c0 >= 0) & (c0 + cols <= geom.pcols)
+                              & (c0 % 16 == 0)).all()):
+        raise ValueError("snapshot slabs must lie inside the padded grid "
+                         "with columns a multiple of 16")
+    if grids.device.type == "cpu":
+        return replay_exact_plain(grids, sched, cfg, geom, snaps, n_kf)
+    if grids.device.type != "cuda":
+        raise ValueError(f"no exact replay kernel for device {grids.device}")
+    if B == 0 or T == 0:
+        return grids
+    fn = _build.load_library("replay_exact").mqs_replay_exact_snap
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
+               else None)
+    m = cfg.map
+    with torch.cuda.device(grids.device):
+        stream = torch.cuda.current_stream(grids.device).cuda_stream
+        err = fn(
+            grids.data_ptr(), sched.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), snaps.data_ptr(),
+            B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
+            geom.height, m.lo_min, m.lo_max, m.lo_free_dec, n_kf, rows, cols,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"replay_exact_snap kernel launch failed: CUDA "
+                           f"error {err}")
+    replay_exact_snap.launches += 1
+    return grids
+
+
+replay_exact_snap.launches = 0
+
+
+def track_schedule(beams, x, y, yaw_deg, ox, oy, do, rsy, rsx,
+                   cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
+                   r0s=None, c0s=None) -> torch.Tensor:
+    """The schedule of a pose track with every frame enabled: beams
+    [B, T, 4, 8], poses, per-frame origins, recenter flags and shifts
+    [B, T] (a frame with do = 0 does not move the grid, whatever its
+    shifts), and optionally the snapshot slab origins [B, T].  Frames with
+    NaN beams are inert."""
+    rays = make_rays(beams, x, y, yaw_deg, ox, oy,
+                     torch.ones_like(x, dtype=torch.bool), cfg.map, cfg.tof)
+    do = do != 0
+    zero = torch.zeros_like(rays["pcx"])
+    return _pack(rays, do, torch.where(do, rsy.to(zero.dtype), zero),
+                 torch.where(do, rsx.to(zero.dtype), zero), geom, r0s, c0s)
+
+
+def _fresh_grids(x: torch.Tensor, geom: GridGeom) -> torch.Tensor:
+    return torch.zeros((x.shape[0], geom.prows, geom.pcols),
+                       dtype=torch.int8, device=x.device)
+
+
+def map_chunk_sched(grids, beams, x, y, yaw_deg, ox, oy, do, rsy, rsx,
+                    cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """Apply [B, C] scans to grids [B, PR, PC] with per-frame origins and a
+    recenter schedule (the grid moves by (rsy, rsx) cells before frame c's
+    rays when do != 0), every frame enabled: the SLAM re-raster.  Returns
+    new grids; `grids` is left as it was."""
+    sched = track_schedule(beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, cfg,
+                           geom)
+    return replay_exact(grids.clone(memory_format=torch.contiguous_format),
+                        sched, cfg, geom)
+
+
+def map_chunk(grids, beams, x, y, yaw_deg, origin_x, origin_y,
+              cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """map_chunk_sched with one fixed origin per flight (origin_x/y [B]) and
+    no recentering."""
+    z = torch.zeros_like(x, dtype=torch.int32)
+    return map_chunk_sched(grids, beams, x, y, yaw_deg,
+                           origin_x[:, None].expand_as(x),
+                           origin_y[:, None].expand_as(x), z, z, z, cfg, geom)
+
+
+def map_track(beams, x, y, yaw_deg, origin_x, origin_y,
+              cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """Raster a [B, T] pose track into fresh grids: map_chunk from zero
+    grids."""
+    return map_chunk(_fresh_grids(x, geom), beams, x, y, yaw_deg, origin_x,
+                     origin_y, cfg, geom)
+
+
+def _snap_dims(geom: GridGeom) -> tuple:
+    """Snapshot slab shape [win_rows + 8, 2*win_cols]: the 8 extra rows and
+    the doubled width cover the 8/128 alignment of the slab's origin below
+    the match window's (see _snap_align)."""
+    return geom.win_rows + 8, 2 * geom.win_cols
+
+
+def _snap_align(wy0, wx0, geom: GridGeom):
+    """Aligned slab origin for a match window at (wy0, wx0): 8/128-aligned,
+    clipped so that the slab stays inside the padded grid.  The window
+    sits at (wy0 - r0s, wx0 - c0s) in [0, 8] x [0, 128] inside it."""
+    sr, sc = _snap_dims(geom)
+    r0s = (torch.div(wy0, 8, rounding_mode="floor") * 8).clamp(
+        0, geom.prows - sr)
+    c0s = (torch.div(wx0, 128, rounding_mode="floor") * 128).clamp(
+        0, geom.pcols - sc)
+    return r0s, c0s
+
+
+def _snap_operands(grids, beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, wy0,
+                   wx0, n_kf: int, cfg: PipelineConfig, geom: GridGeom):
+    """map_snap's schedule (with the slab origins), zero snapshot slabs and
+    a copy of the grids: (grids, sched, snaps)."""
+    B, K = x.shape
+    if K % n_kf:
+        raise ValueError(f"{K} slots are not whole chunks of {n_kf}")
+    r0s, c0s = _snap_align(wy0, wx0, geom)
+    sched = track_schedule(beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, cfg,
+                           geom, r0s, c0s)
+    snaps = torch.zeros((B, K) + _snap_dims(geom), dtype=torch.int8,
+                        device=x.device)
+    return grids.clone(memory_format=torch.contiguous_format), sched, snaps
+
+
+def map_snap(grids, beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, wy0, wx0,
+             n_kf: int, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """map_chunk_sched over K keyframe slots [B, K] (K a multiple of n_kf)
+    that also snapshots, at the start of every chunk of n_kf slots (after
+    its recenter, before its rays), the slab around each of the chunk's
+    match windows (wy0, wx0) [B, K], given in the chunk-start origin's
+    frame.  Returns (new grids, snaps int8 [B, K, win_rows+8, 2*win_cols]);
+    the match window sits at (wy0 - r0s, wx0 - c0s) in its slab
+    (_snap_align)."""
+    g, sched, snaps = _snap_operands(grids, beams, x, y, yaw_deg, ox, oy, do,
+                                     rsy, rsx, wy0, wx0, n_kf, cfg, geom)
+    return replay_exact_snap(g, sched, snaps, n_kf, cfg, geom), snaps
+
+
+def map_snap_plain(grids, beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, wy0,
+                   wx0, n_kf: int, cfg: PipelineConfig,
+                   geom: GridGeom = DEFAULT_GEOM):
+    """map_snap through replay_exact_plain on any device (the kernel's
+    plain twin, for the checks)."""
+    g, sched, snaps = _snap_operands(grids, beams, x, y, yaw_deg, ox, oy, do,
+                                     rsy, rsx, wy0, wx0, n_kf, cfg, geom)
+    return replay_exact_plain(g, sched, cfg, geom, snaps, n_kf), snaps
 
 
 def replay_residentx(frames: dict, cfg: PipelineConfig,

@@ -1,9 +1,10 @@
-"""Committed test flights of the port, as numpy arrays (numpy only).
+"""Committed test flights of the port, as numpy arrays.
 
 Each `<name>.npz` holds one batch of flights in the layout of
 replay/mapping.py::scanlog_to_arrays with a leading flight dimension
-(grid_mm [B, T, 4, 8, 8], x_m [B, T], ...).  The golden ones also hold the
-golden C model's result for every flight under `golden_*` keys: `grid`
+(grid_mm [B, T, 4, 8, 8], x_m [B, T], ...; slam_bench_flights also holds
+the EKF inputs of replay/fusion.py::fusion_arrays).  The golden ones also
+hold the golden C model's result for every flight under `golden_*` keys: `grid`
 (the logical int8 grid [B, H, W]), `used` [B, T], `recentered` [B] and
 `origin_x` [B].
 
@@ -15,6 +16,10 @@ golden C model's result for every flight under `golden_*` keys: `grid`
     golden_short_beams    3 frames with every zone at 51 mm (flight 0) or
                           53 mm (flight 1): most rays end in the pose cell
     bench_flight          bench.py's base flight, 256 frames
+    slam_bench_flights    the 4 distinct circle flights (flow on, 6 mm
+                          noise) of sim/synthio.py::slam_bench_frames at
+                          256 frames, with the EKF inputs of
+                          replay/fusion.py::fusion_arrays as well
 
 Beside the flights, reference results of the JAX package's replay
 (`reference(name)`):
@@ -25,6 +30,16 @@ Beside the flights, reference results of the JAX package's replay
                            each flight's grid after its kernel="hybrid"
                            replay of bench_frames(1024), bench.py's
                            hybridx workload
+    slam_bench_ref         its slam_replay of slam_bench_flights, under
+                           `ul_` (UL_PROFILE) and `rt_` (UL_RT_PROFILE):
+                           track, odo_track [4, 256, 3], kf_nodes
+                           [4, 26, 3], and the grids' sums and weighted
+                           sums [4]; `ekf_x`, its fusion replay's x track
+    slam_stages            `_slam_impl` of a small batch (2 copies of a
+                           60-frame drifting circle, the second 5 m east;
+                           inputs under `in_`) with the trimmed profile of
+                           tests/test_slam.py::test_slam_small_end_to_end,
+                           kf_every 10, gn_iters 4, stage by stage
 
 tests/test_torch_testdata.py holds every file bit-equal to what the JAX
 package's flight simulator, golden model and replay give now (re-deriving
@@ -39,11 +54,10 @@ import os
 
 import numpy as np
 
-FRAME_KEYS = ("grid_mm", "x_m", "y_m", "yaw_deg", "of_q", "of_rate_x",
-              "sys_health", "state")
 NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
-         "golden_short_beams", "bench_flight")
-REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums")
+         "golden_short_beams", "bench_flight", "slam_bench_flights")
+REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
+              "slam_stages")
 
 
 def path(name: str) -> str:
@@ -55,7 +69,7 @@ def load(name: str):
     """-> (frames dict of [B, T, ...] arrays, golden dict; empty when the
     file holds no golden result)."""
     with np.load(path(name)) as z:
-        frames = {k: z[k] for k in FRAME_KEYS}
+        frames = {k: z[k] for k in z.files if not k.startswith("golden_")}
         golden = {k[len("golden_"):]: z[k] for k in z.files
                   if k.startswith("golden_")}
     return frames, golden
@@ -92,3 +106,19 @@ def bench_frames(B: int = 1024) -> dict:
         frames["yaw_deg"] + rng.uniform(-180, 180, (B, 1)).astype(np.float32)
         + 180.0, 360.0) - 180.0
     return frames
+
+
+def slam_bench_frames(B: int, T: int = 256, device=None) -> dict:
+    """bench.py's SLAM and EKF workload (sim/synthio.py::slam_bench_frames):
+    the 4 distinct slam_bench_flights replicated to B flights, as tensors
+    on `device` (replay/mapping.py::frames_to_torch: the CUDA device unless
+    told otherwise).  Only their committed length, T=256, is available."""
+    from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
+
+    base, _ = load("slam_bench_flights")
+    if T != base["x_m"].shape[1]:
+        raise ValueError(f"the SLAM bench flights hold {base['x_m'].shape[1]} "
+                         f"frames, not {T}")
+    nrep = -(-B // 4)
+    return frames_to_torch({k: np.concatenate([v] * nrep)[:B]
+                            for k, v in base.items()}, device)

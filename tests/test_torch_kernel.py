@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (csrc/replay_exact.cu, csrc/replay_cone.cu)
-against their plain torch versions, on the card.  Every test here needs a
+"""The port's CUDA kernels (csrc/replay_exact.cu with its snapshot entry,
+csrc/replay_cone.cu, csrc/match_lattice.cu) against their plain torch
+versions, on the card.  Every test here needs a
 CUDA device and skips without one.  The file imports nothing of jax or
 the JAX package (its flights are the port's committed test data), so it
 also runs where only the port is installed; from the repository root on a
@@ -16,7 +17,11 @@ import torch
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.ops import conex as cx
+from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.ops.beams import extract_beams
+from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
+from micro_quad_slam_tpu_torch.ops.scanmatch import window_origin
 from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +96,67 @@ def test_replay_through_kernel_equals_per_frame_path(cuda, kernel, plain):
     frames = _flights(cuda)
     _assert_same(port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel),
                  port.replay_mapping_batched(frames, UL_PROFILE, kernel=plain))
+
+
+@pytest.mark.parametrize("shape, n_yaw, T", [((104, 256), 7, 7),
+                                             ((96, 128), 5, 5)])
+def test_match_kernel_bit_equals_plain_on_the_card(cuda, shape, n_yaw, T):
+    """Random slabs and indices with -1 masks and out-of-slab indices."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    N, (SR, SC) = 300, shape
+    slabs = torch.randint(-128, 128, (N, SR, SC), generator=g,
+                          dtype=torch.int8)
+    ry = torch.randint(-1, SR + 2, (N, n_yaw * T, 32), generator=g,
+                       dtype=torch.int32)
+    rx_ = torch.randint(-1, SC + 2, (N, n_yaw * T, 32), generator=g,
+                        dtype=torch.int32)
+    args = [a.to(cuda) for a in (slabs, ry, rx_)]
+    before = ml.match_lattice.launches
+    got = ml.match_lattice(*args, n_yaw)
+    torch.cuda.synchronize()
+    assert ml.match_lattice.launches == before + 1
+    assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
+
+
+def _slots(device, K=8):
+    """4 random flights' every 8th frame as keyframe slots, with a
+    chunk-start recenter (flight 0, slot 4) and a mid-chunk one (flight 1,
+    slot 2)."""
+    t = _flights(device)
+    B = t["x_m"].shape[0]
+    beams, _ = extract_beams(t["grid_mm"], UL_PROFILE.tof)
+    sel = slice(0, 8 * K, 8)
+    x, y, yaw = t["x_m"][:, sel], t["y_m"][:, sel], t["yaw_deg"][:, sel]
+    ox, oy = x[:, :1].expand(B, K).clone(), y[:, :1].expand(B, K).clone()
+    do = torch.zeros((B, K), dtype=torch.int32, device=device)
+    rsy, rsx = do.clone(), do.clone()
+    do[0, 4], rsy[0, 4], rsx[0, 4] = 1, 5, -3
+    do[1, 2], rsy[1, 2], rsx[1, 2] = 1, -4, 7
+    return [beams[:, sel].contiguous(), x, y, yaw, ox, oy, do, rsy, rsx]
+
+
+def test_snapshot_entry_bit_equals_plain_on_the_card(cuda):
+    args = _slots(cuda)
+    pcx, pcy = world_to_cell(args[1], args[2], args[4], args[5], 0.1, 250,
+                             250)
+    wy0, wx0 = window_origin(pcx, pcy, port.DEFAULT_GEOM)
+    g0 = _random_grids(cuda)
+    before = rx.replay_exact_snap.launches
+    got = rx.map_snap(g0, *args, wy0, wx0, 4, UL_PROFILE)
+    torch.cuda.synchronize()
+    assert rx.replay_exact_snap.launches == before + 1
+    want = rx.map_snap_plain(g0, *args, wy0, wx0, 4, UL_PROFILE)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[1][0, 4], got[1][0, 3])
+
+
+def test_map_chunk_sched_kernel_equals_plain_on_the_card(cuda):
+    args = _slots(cuda)
+    g0 = _random_grids(cuda)
+    before = rx.replay_exact.launches
+    got = rx.map_chunk_sched(g0, *args, UL_PROFILE)
+    assert rx.replay_exact.launches == before + 1
+    sched = rx.track_schedule(*args, UL_PROFILE)
+    want = rx.replay_exact_plain(g0.clone(), sched, UL_PROFILE)
+    assert torch.equal(got, want)
+

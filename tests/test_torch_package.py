@@ -88,12 +88,15 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 def test_port_imports_and_replays_without_jax(tmp_path):
     """In a fresh interpreter (this process already holds jax: conftest
     imports it), the port imports and replays committed flights on the
-    CPU in the exact and the hybrid whole-replay modes, and imports
-    neither jax nor the JAX package."""
+    CPU in the exact and the hybrid whole-replay modes, runs the EKF and
+    SLAM replays, and imports neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import micro_quad_slam_tpu_torch as port
         from micro_quad_slam_tpu_torch import testdata
+        from micro_quad_slam_tpu_torch.replay.fusion import (
+            replay_fusion_batched)
+        from micro_quad_slam_tpu_torch.slam import slam_replay
         f, _ = testdata.load("random_flights")
         f = port.frames_to_torch({k: v[:2, :8] for k, v in f.items()}, "cpu")
         for kernel in ("residentx", "hybridx"):
@@ -101,6 +104,13 @@ def test_port_imports_and_replays_without_jax(tmp_path):
                                                    kernel=kernel)
             assert bool(outs["used"].all()), kernel
             assert int(st.grid.ne(0).sum()) > 100, kernel
+        s, _ = testdata.load("slam_bench_flights")
+        s = port.frames_to_torch({k: v[:1, :24] for k, v in s.items()},
+                                 "cpu")
+        _, track = replay_fusion_batched(s, port.UL_RT_PROFILE)
+        res = slam_replay(s, port.UL_RT_PROFILE, kf_every=8, gn_iters=2)
+        assert res.track.shape == (1, 24, 3) and track["x"].shape == (1, 24)
+        assert int(res.grid.ne(0).sum()) > 100
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "micro_quad_slam_tpu"))
         assert not loaded, loaded

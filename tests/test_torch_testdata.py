@@ -7,15 +7,18 @@ package's kernel="hybrid" replay (a few bench flights re-derived).
 
 This file is also the generator of that data.  From the repository root:
 
-    JAX_PLATFORMS=cpu python tests/test_torch_testdata.py
+    JAX_PLATFORMS=cpu python tests/test_torch_testdata.py [name ...]
 
-rewrites every file (the B=1024 hybrid bench sums run on the CPU in
-chunks of 64 flights).
+rewrites every file, or the named ones (the B=1024 hybrid bench sums run
+on the CPU in chunks of 64 flights; the SLAM references compile the JAX
+package's SLAM pipeline once per profile and stage, several minutes).
 """
 
+import dataclasses
 import os
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,9 +26,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from micro_quad_slam_tpu.golden import golden_replay_mapping  # noqa: E402
+from micro_quad_slam_tpu.replay import fusion as jfusion  # noqa: E402
 from micro_quad_slam_tpu.replay import mapping as jm  # noqa: E402
+from micro_quad_slam_tpu.sim import slam_bench_frames as jax_slam_bench_frames  # noqa: E402
 from micro_quad_slam_tpu.sim import synth_room_scanlog  # noqa: E402
 from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL  # noqa: E402
+from micro_quad_slam_tpu.utils.config import UL_RT_PROFILE as JAX_UL_RT  # noqa: E402
 import micro_quad_slam_tpu_torch as port  # noqa: E402
 from micro_quad_slam_tpu_torch import testdata  # noqa: E402
 
@@ -132,14 +138,95 @@ def hybrid_bench_sums() -> dict:
     return _bench_sums(np.arange(1024))
 
 
+def slam_bench_flights() -> dict:
+    """sim/synthio.py::slam_bench_frames' 4 distinct flights at T=256."""
+    return jax_slam_bench_frames(4, 256, device_put=False)
+
+
+def _jax_slam(frames: dict, profile, upto: int = 99):
+    from micro_quad_slam_tpu.ops.raycast import DEFAULT_GEOM
+    from micro_quad_slam_tpu.slam.pipeline import _slam_impl
+
+    out = _slam_impl(frames, profile, DEFAULT_GEOM, None, None, None, upto)
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+def slam_bench_ref() -> dict:
+    frames = testdata.load("slam_bench_flights")[0]
+    out = {}
+    for tag, profile in (("ul", JAX_UL), ("rt", JAX_UL_RT)):
+        res = _jax_slam(frames, profile)
+        sums = testdata.grid_sums(res.grid)
+        out.update({f"{tag}_track": res.track, f"{tag}_odo_track": res.odo_track,
+                    f"{tag}_kf_nodes": res.kf_nodes,
+                    f"{tag}_sums": sums["sums"],
+                    f"{tag}_weighted": sums["weighted"]})
+    _, track = jfusion.replay_fusion_batched(frames, JAX_UL)
+    out["ekf_x"] = np.asarray(track["x"])
+    return out
+
+
+def slam_stage_inputs() -> dict:
+    """tests/test_slam.py::test_slam_small_end_to_end's batch: a 60-frame
+    circle with a 6% flow-scale drift, and its copy 5 m east."""
+    log = synth_room_scanlog(n_frames=60, path="circle", path_radius_m=1.0,
+                             room=(-2.5, -2.5, 2.5, 2.5), with_flow=True,
+                             seed=3)
+    log.of_rate_x[:] *= 1.06
+    log.of_rate_y[:] *= 1.06
+    f = {**jm.scanlog_to_arrays(log), **jfusion.fusion_arrays(log)}
+    east = {**f, "x_m": f["x_m"] + np.float32(5.0)}
+    return {k: np.stack([f[k], east[k]]) for k in f}
+
+
+def slam_stage_profile(cfg):
+    """test_slam_small_end_to_end's trimmed profile of `cfg` (either
+    package's PipelineConfig): 2 outer rounds, 1 refine."""
+    return dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, slam_outer=2, loop_refine=1, loop_refine_early=1,
+        gn_refine_iters=2, match_iters_later=1))
+
+
+def _stage_outputs(upto: int, out) -> dict:
+    """One stage's outputs under their reference keys."""
+    if upto == 0:
+        odo, sched = out
+        return {"s0_odo": odo, **{f"s0_{k}": v for k, v in sched.items()}}
+    if upto == 1:
+        return {"s1_matched": out}
+    if upto == 2:
+        return dict(zip(("s2_matched", "s2_ij", "s2_z", "s2_ok"), out))
+    if upto == 3:
+        return {"s3_kf_nodes": out[0], "s3_gn_costs": out[1]}
+    return {"s4_track": out.track, "grid": out.grid,
+            "origin_x": out.origin[0], "origin_y": out.origin[1]}
+
+
+def _jax_slam_stage(frames: dict, upto: int) -> dict:
+    from micro_quad_slam_tpu.ops.raycast import DEFAULT_GEOM
+    from micro_quad_slam_tpu.slam.pipeline import _slam_impl
+
+    out = _slam_impl(frames, slam_stage_profile(JAX_UL), DEFAULT_GEOM, 10, 4,
+                     None, upto)
+    return _stage_outputs(upto, jax.tree_util.tree_map(np.asarray, out))
+
+
+def slam_stages() -> dict:
+    frames = slam_stage_inputs()
+    out = {f"in_{k}": v for k, v in frames.items()}
+    for upto in (0, 1, 2, 3, 99):
+        out.update(_jax_slam_stage(frames, upto))
+    return out
+
+
 def build(name: str) -> dict:
     if name not in testdata.NAMES + testdata.REFERENCES:
         raise ValueError(f"unknown test data {name!r}")
     return globals()[name]()
 
 
-def main() -> int:
-    for name in testdata.NAMES + testdata.REFERENCES:
+def main(names=None) -> int:
+    for name in names or testdata.NAMES + testdata.REFERENCES:
         np.savez_compressed(testdata.path(name), **build(name))
         print(testdata.path(name), flush=True)
     return 0
@@ -236,5 +323,39 @@ def test_hybrid_references_equal_the_port_on_the_cpu():
         np.testing.assert_array_equal(got[k], v[sel], err_msg=k)
 
 
+def test_slam_bench_frames_equal_sim():
+    """testdata.slam_bench_frames against sim/synthio.py::slam_bench_frames
+    at B=10 (two full replications and a partial one)."""
+    want = jax_slam_bench_frames(10, 256, device_put=False)
+    got = testdata.slam_bench_frames(10, device="cpu")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    with pytest.raises(ValueError, match="256"):
+        testdata.slam_bench_frames(4, 128, device="cpu")
+
+
+def test_slam_stage_inputs_and_odometry_equal_jax_now():
+    """The stored stage inputs and the cheap first stage (pass 0) against
+    the JAX package now; the later stages' compiles take minutes, so they
+    are re-derived by the slow test below."""
+    ref = testdata.reference("slam_stages")
+    inputs = slam_stage_inputs()
+    for k, v in inputs.items():
+        np.testing.assert_array_equal(ref[f"in_{k}"], v, err_msg=k)
+    for k, v in _jax_slam_stage(inputs, 0).items():
+        np.testing.assert_array_equal(ref[k], v, err_msg=k)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["slam_stages", "slam_bench_ref"])
+def test_slam_references_equal_jax_now(name):
+    want = build(name)
+    got = testdata.reference(name)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
