@@ -4,11 +4,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's replay paths, the batched bit-exact mapping replay
-(kernel="residentx"), the hybrid production replay (kernel="hybridx") and
+It drives the port's paths, the batched bit-exact mapping replay
+(kernel="residentx"), the hybrid production replay (kernel="hybridx"),
 the SLAM replay (slam_replay: EKF odometry, scan matching, pose graph,
-re-raster), and builds and checks their hand-written CUDA kernels
-(csrc/replay_exact.cu with its snapshot entry, csrc/replay_cone.cu,
+re-raster) and the closed-loop swarm simulator (models/simulator.py), and
+builds and checks their hand-written CUDA kernels (csrc/replay_exact.cu
+with its snapshot and map-step entries, csrc/replay_cone.cu,
 csrc/match_lattice.cu).  Each phase prints one line and raises on
 failure; nothing falls back to the CPU.  Phases:
 
@@ -22,7 +23,11 @@ failure; nothing falls back to the CPU.  Phases:
      hybridx == hybrid), and hybridx == the JAX package's hybrid grids
      of the random flights; then the lattice kernel == its plain version
      at the SLAM path's two slab shapes and match counts, and the
-     snapshot and scheduled-chunk entries == theirs, with recenters;
+     snapshot and scheduled-chunk entries == theirs, with recenters; then
+     the map-step entry == its plain version at B=1024 (random grids,
+     NaN beams, a disabled quad, poses at the grid edge; a saturating
+     endpoint; the short beams), and mapping_step(kernel="pallas" and
+     "pallas_db"), one map-step launch per frame, == kernel="xla";
   4. exact kernel == the golden C model on a hover, a recentering flight
      and very short beams;
   5. resume: a residentx and a hybridx replay split at T/2 equal the
@@ -42,7 +47,16 @@ failure; nothing falls back to the CPU.  Phases:
      and snapshot entry alone against their plain versions and bounds);
      and the EKF bench at B=1024.  The hybridx grids' per-flight sums
      must equal the JAX package's hybrid replay's, and the SLAM checksums
-     the JAX package's CPU results.
+     the JAX package's CPU results;
+  8. the swarm: the committed JAX small swarm (bench.py's swarm at B=8,
+     its start state and draws) reproduced on the card (behaviour-state
+     and cmd_kind traces, grids and frontier scores equal, poses and EKF
+     means within 1e-4), then bench.py's swarm line, B=1024 x T=1000 at
+     1 kHz: control ticks/s, the checksum against the port's committed
+     CPU result (every quad's grid sum), the map-step launches, the
+     device's busy time and idle share in one profiled run, and the
+     map-step kernel's device time per launch against its plain version
+     and its bound on the run's own scan ticks.
 
 It imports the port and numpy only: the inputs and reference results are
 committed files of the port (micro_quad_slam_tpu_torch/testdata).
@@ -69,6 +83,7 @@ from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.ops import scanmatch as sm
+from micro_quad_slam_tpu_torch.models import simulator as sim
 from micro_quad_slam_tpu_torch.replay import fusion as fu
 from micro_quad_slam_tpu_torch.slam import pipeline as sp
 
@@ -78,12 +93,14 @@ SLAM_PROFILES = {"ul": port.UL_PROFILE, "rt": port.UL_RT_PROFILE}
 
 # the JAX package's bench lines on the TPU (BENCH_r05): checksum anchors
 CHECKSUM_REF = {"residentx": -239317572, "hybridx": -401735680,
-                "ul": -28317856, "rt": -56410560, "ekf": 1024}
+                "ul": -28317856, "rt": -56410560, "ekf": 1024,
+                "swarm": -8944084}
 METRIC = {"residentx": "fused_sensor_frames_per_sec_per_chip",
           "hybridx": "fused_sensor_frames_per_sec_per_chip_hybridx",
           "ul": "slam_frames_per_sec_per_chip",
           "rt": "slam_rt_frames_per_sec_per_chip",
-          "ekf": "ekf_frames_per_sec_per_chip"}
+          "ekf": "ekf_frames_per_sec_per_chip",
+          "swarm": "swarm_control_ticks_per_sec_per_chip"}
 PLAIN = {"residentx": "xla", "hybridx": "hybrid"}
 SOURCES = ("replay_exact", "replay_cone", "match_lattice")
 KERNELS = {
@@ -102,11 +119,18 @@ KERNELS = {
         # the snapshot entry (mqs_replay_exact_snap) of the exact kernel
         "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:845"},
+    "map_step": {
+        # the map-step entry (mqs_map_step) of the exact kernel; the
+        # per-frame window kernels pallas_raycast.py:98 _window_kernel and
+        # :212 _window_kernel_db (kernel names pallas, pallas_db) route to it
+        "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
+        "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1662"},
 }
 # counters of the kernels' wrappers (one per launch)
 WRAPPERS = {"replay_exact": rx.replay_exact, "replay_cone": cx.replay_cone,
             "match_lattice": ml.match_lattice,
-            "replay_exact_snap": rx.replay_exact_snap}
+            "replay_exact_snap": rx.replay_exact_snap,
+            "map_step": rx.map_step}
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -386,12 +410,6 @@ def _time_kernel(grids, fn, reps: int) -> float:
     return _time_call(lambda: fn(grids), reps, grids.zero_)
 
 
-def _dev_us(e) -> float:
-    """Device microseconds of a torch.profiler key_averages() entry."""
-    return (getattr(e, "self_device_time_total", None)
-            or getattr(e, "self_cuda_time_total", 0))
-
-
 def _time_queued(fn, n: int = 20) -> float:
     """ms per call of fn() over n calls queued back to back after one
     more, by CUDA events: the card's time per launch for a wrapper that
@@ -438,9 +456,12 @@ def _profiled_busy(fn, names) -> dict:
     """One call of fn under torch.profiler (host and device): the summed
     device time of every kernel, copy and fill it ran and their count, the
     device ms and launches of each kernel whose name holds one of
-    `names`, the wall time of the profiled run, and the five host ops with
-    the most self time.  busy_ms is None when the profiler saw no device
-    activity."""
+    `names`, the wall time of the profiled run, and the five host events
+    with the most summed time (`host_total`: nested events included, so a
+    caller's time holds its callees').  It reads the trace's raw events
+    (the profiler's kineto results): key_averages() builds an event tree
+    that takes many minutes for one 1,000-tick swarm run (~1.9 M kernels).
+    busy_ms is None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -450,19 +471,25 @@ def _profiled_busy(fn, names) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    us = sum(_dev_us(e) for e in on_dev)
-    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
-    return {"busy_ms": us / 1e3 if us > 0 else None,
-            "device_ops": sum(e.count for e in on_dev),
-            "kernel_device_ms": {e.key: _dev_us(e) / 1e3 for e in on_dev
-                                 if any(n in e.key for n in names)},
-            "kernel_launches": {e.key: e.count for e in on_dev
-                                if any(n in e.key for n in names)},
-            "host_top": [[e.key, e.self_cpu_time_total / 1e3, e.count]
-                         for e in host[:5]],
+    dev_ns, dev_n, host = 0, 0, {}
+    kern_ns, kern_n = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name, ns = e.name(), e.duration_ns()
+        if e.device_type() == DeviceType.CUDA:
+            dev_ns += ns
+            dev_n += 1
+            if any(n in name for n in names):
+                kern_ns[name] = kern_ns.get(name, 0) + ns
+                kern_n[name] = kern_n.get(name, 0) + 1
+        else:
+            t, c = host.get(name, (0, 0))
+            host[name] = (t + ns, c + 1)
+    top = sorted(host.items(), key=lambda kv: kv[1][0], reverse=True)[:5]
+    return {"busy_ms": dev_ns / 1e6 if dev_ns > 0 else None,
+            "device_ops": dev_n,
+            "kernel_device_ms": {k: v / 1e6 for k, v in kern_ns.items()},
+            "kernel_launches": kern_n,
+            "host_total": [[k, t / 1e6, c] for k, (t, c) in top],
             "profiled_wall_s": wall}
 
 
@@ -618,7 +645,7 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
         schedule_seconds=sched_s, device_busy_ms=busy["busy_ms"],
         device_ops=busy["device_ops"],
         kernel_device_ms=busy["kernel_device_ms"],
-        host_top=busy["host_top"],
+        host_total=busy["host_total"],
         profiled_wall_s=busy["profiled_wall_s"], device_idle_share=idle,
         B=B, T=T, reps=reps, card=smi)
 
@@ -1011,7 +1038,8 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
                              if v},
         device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
         kernel_device_ms=busy["kernel_device_ms"],
-        kernel_launches=busy["kernel_launches"], host_top=busy["host_top"],
+        kernel_launches=busy["kernel_launches"],
+        host_total=busy["host_total"],
         profiled_wall_s=busy["profiled_wall_s"],
         device_idle_share=(None if busy["busy_ms"] is None
                            else 1 - busy["busy_ms"] / (dt * 1e3)),
@@ -1054,10 +1082,248 @@ def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
         checksum_matches_ref=ck == CHECKSUM_REF["ekf"], checksum_jax_cpu=want,
         max_abs_err_x_vs_jax_cpu=err, rep_seconds=times,
         device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
-        host_top=busy["host_top"],
+        host_total=busy["host_total"],
         device_idle_share=(None if busy["busy_ms"] is None
                            else 1 - busy["busy_ms"] / (dt * 1e3)),
         B=B, T=T, reps=reps, card=smi)
+
+
+# ----------------------------------------------------------------- swarm
+
+def _map_step_cases(device, B: int = 1024) -> dict:
+    """name -> (grids, [per-frame map_step arguments]): tests/test_pallas.py
+    :421-451's case at B=1024 (random grids in [-80, 80], beams up to 4.2 m
+    with 15% NaN, poses in +/-20 m with the last two at or over the grid
+    edge, quad 3 disabled); a saturating endpoint (grids at 120, every
+    front beam 7 cm from the pose); the short-beam flights' 3 frames."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=device).manual_seed(3)
+    grids = torch.randint(-80, 81, (B, GEOM.prows, GEOM.pcols),
+                          dtype=torch.int8, device=device, generator=gen)
+    beams = rng.uniform(0.1, 4.2, (B, 4, 8)).astype(np.float32)
+    beams[rng.random((B, 4, 8)) < 0.15] = np.nan
+    x = rng.uniform(-20, 20, B).astype(np.float32)
+    y = rng.uniform(-20, 20, B).astype(np.float32)
+    x[-2:] = rng.uniform(24.0, 26.0, 2)
+    yaw = rng.uniform(-180, 180, B).astype(np.float32)
+    z = np.zeros(B, np.float32)
+    en = np.ones(B, bool)
+    en[3] = False
+    ten = lambda *a: [torch.from_numpy(v).to(device) for v in a]   # noqa: E731
+    cases = {"random_edge_disabled": (grids, [ten(beams, x, y, yaw, z, z,
+                                                  en)])}
+    sat = np.full((2, 4, 8), np.nan, np.float32)
+    sat[:, 0] = 0.07
+    z2 = np.zeros(2, np.float32)
+    cases["saturating_endpoint"] = (
+        torch.full((2, GEOM.prows, GEOM.pcols), 120, dtype=torch.int8,
+                   device=device),
+        [ten(sat, z2, z2, z2, z2, z2, np.ones(2, bool))] * 4)
+    f = port.frames_to_torch(short_beams(), device)
+    sb, _ = port.ops.extract_beams(f["grid_mm"], UL_PROFILE.tof)
+    zt = torch.zeros(2, device=device)
+    cases["short_beams"] = (
+        torch.zeros((2, GEOM.prows, GEOM.pcols), dtype=torch.int8,
+                    device=device),
+        [[sb[:, t], f["x_m"][:, t], f["y_m"][:, t], f["yaw_deg"][:, t], zt,
+          zt, torch.ones(2, dtype=torch.bool, device=device)]
+         for t in range(sb.shape[1])])
+    return cases
+
+
+def phase_map_step_vs_plain(device) -> None:
+    """The map-step entry against map_step_plain, bit for bit, then the
+    per-frame kernel names "pallas" and "pallas_db" (one map-step launch
+    per frame) against kernel="xla" on the random flights."""
+    before = rx.map_step.launches
+    n_frames = 0
+    cases = _map_step_cases(device)
+    for name, (g0, frames) in cases.items():
+        got, want = g0.clone(), g0.clone()
+        for a in frames:
+            rx.map_step(got, *a, UL_PROFILE)
+            rx.map_step_plain(want, *a, UL_PROFILE)
+        n_frames += len(frames)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"map_step {name} differs from plain")
+        check(not torch.equal(got, g0), f"map_step {name}: no cell moved")
+        if name == "random_edge_disabled":
+            check(torch.equal(got[3], g0[3]), "the disabled quad's grid moved")
+        else:
+            check(int(got.max()) >= UL_PROFILE.map.lo_max - 10,
+                  f"map_step {name}: no saturation")
+    launches = rx.map_step.launches - before
+    check(launches == n_frames, f"map_step launched {launches} times for "
+                                f"{n_frames} frames")
+    f = random_flights()
+    T = f["x_m"].shape[1]
+    routes = {}
+    for kernel in ("pallas", "pallas_db"):
+        b = rx.map_step.launches
+        k = replay(f, device, kernel)
+        routes[kernel] = rx.map_step.launches - b
+        check(routes[kernel] == T, f"{kernel}: {routes[kernel]} map-step "
+                                   f"launches for {T} frames")
+        assert_same(k, replay(f, device, "xla"), f"{kernel} vs xla")
+    say("kernel_vs_plain", kernel="map_step", cases=list(cases),
+        B=1024, bit_equal=True, launches=launches,
+        per_frame_routes_equal_xla=list(routes), route_launches=routes)
+
+
+SWARM_TOL = 1e-4      # tests/test_torch_simulator.py: poses and EKF means
+
+
+def phase_swarm_vs_jax(device) -> None:
+    """The committed JAX small swarm (bench.py's swarm at B=8, T=1000,
+    its start state and its 10 scan ticks' draws) on the card: the
+    behaviour-state and cmd_kind traces, grids and frontier scores equal,
+    true poses and EKF means within SWARM_TOL."""
+    world, st, draws, ref = testdata.swarm_small(device)
+    before = rx.map_step.launches
+    fin, diag = sim.sim_run(st, world, testdata.SWARM_T, UL_PROFILE,
+                            record=True, draws=draws, **testdata.SWARM_RUN)
+    n = rx.map_step.launches - before
+    host = lambda v: v.cpu().numpy()                                 # noqa: E731
+    equal = {
+        "state": np.array_equal(host(diag["state"]), ref["state"]),
+        "cmd_kind": np.array_equal(host(diag["cmd_kind"]), ref["cmd_kind"]),
+        "grid": np.array_equal(host(fin.mapper.grid), ref["grid"]),
+        "frontier": np.array_equal(host(fin.frontier), ref["frontier"]),
+        "scan_count": fin.scan_count == int(ref["scan_count"])}
+    errs = {k: float(np.abs(host(getattr(fin, k)) - ref[k]).max())
+            for k in ("x", "y", "yaw")}
+    errs["ekf_mean"] = float(np.abs(host(fin.ekf.mean)
+                                    - ref["ekf_mean"]).max())
+    say("swarm_vs_jax", B=st.x.shape[0], T=testdata.SWARM_T, equal=equal,
+        max_abs_err=errs, tolerance=SWARM_TOL, map_step_launches=n)
+    check(all(equal.values()), f"swarm vs the JAX package: {equal}")
+    check(max(errs.values()) <= SWARM_TOL, f"swarm floats off: {errs}")
+    check(n == fin.scan_count == 10, f"{n} map-step launches")
+
+
+def _run_swarm(world, st):
+    fin, diag = sim.sim_run(st, world, testdata.SWARM_T, UL_PROFILE,
+                            **testdata.SWARM_RUN)
+    torch.cuda.synchronize()
+    return fin, diag
+
+
+def _run_swarm_keeping_map_steps(world, st0):
+    """_run_swarm with the simulator's map_step wrapped to keep each scan
+    tick's operands (the launches still count): (fin, diag, [(grids
+    before, [beams .. enabled])])."""
+    ticks = []
+    real = sim.map_step
+
+    def keep(grids, *args):
+        ticks.append((grids.clone(), [a.clone() for a in args[:7]]))
+        return real(grids, *args)
+
+    sim.map_step = keep
+    try:
+        return (*_run_swarm(world, st0), ticks)
+    finally:
+        sim.map_step = real
+
+
+def _map_step_alone(ticks) -> dict:
+    """The map-step kernel on the bench run's own scan ticks against its
+    plain version (max abs error, plain ms per tick by CUDA events) and
+    its bound per launch: the words read once, each touched 32-byte grid
+    sector read and written once, and EXACT_CELL_OPS int32 operations per
+    ray cell, averaged over the ticks."""
+    err, plain, bounds, nbytes, ops = 0, [], [], 0, 0
+    for g0, args in ticks:
+        gk, gp = g0.clone(), g0.clone()
+        rx.map_step(gk, *args, UL_PROFILE)
+        plain.append(_time_call(lambda: rx.map_step_plain(gp, *args,
+                                                          UL_PROFILE),
+                                1, lambda: gp.copy_(g0)))
+        err = max(err, int((gk.to(torch.int16) - gp.to(torch.int16))
+                           .abs().max()))
+        words = rx._step_words(*args, UL_PROFILE, GEOM)
+        sectors, cells = _exact_touched(words[:, None])
+        b = words.numel() * words.element_size() + 2 * 32 * sectors
+        o = cells * EXACT_CELL_OPS[1]
+        bounds.append(max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S) * 1e3)
+        nbytes += b
+        ops += o
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS_PER_S
+          else "operations")
+    return {"max_abs_err": err, "plain_ms": sum(plain) / len(plain),
+            "bound_ms": sum(bounds) / len(bounds), "bound_by": by,
+            "bound_bytes_per_tick": nbytes / len(ticks),
+            "bound_ops_per_tick": ops / len(ticks), "ticks": len(ticks)}
+
+
+def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
+    """bench.py's swarm line (bench.py:45-81) on the card: B=1024 quads,
+    T=1000 control ticks at 1 kHz, a scan every 100 ms, the airborne
+    start; best of `reps` after a warm-up.  The checksum and every quad's
+    grid sum must equal the port's committed CPU run (swarm_bench_ref);
+    the TPU record drew its noise from jax.random, another generator.
+    Returns the map-step kernel's entry of the kernels line."""
+    world, st0, _ = testdata.swarm_bench(device=device)
+    B, T = testdata.SWARM_B, testdata.SWARM_T
+    torch.cuda.synchronize()
+    reset_launches()                      # count this path's runs only
+    # the warm-up run also keeps the scan ticks' operands for the kernel's
+    # own check, time and bound (_map_step_alone)
+    fin, diag, ticks = _run_swarm_keeping_map_steps(world, st0)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fin, diag = _run_swarm(world, st0)
+        times.append(time.perf_counter() - t0)
+    n_launch = launches()
+    runs = reps + 1
+    check(n_launch["map_step"] == 10 * runs,
+          f"the swarm launched map_step {n_launch['map_step']} times in "
+          f"{runs} runs")
+    ref = testdata.reference("swarm_bench_ref")
+    sums = testdata.grid_sums(fin.mapper.grid.cpu().numpy())["sums"]
+    ck = testdata.int32_total(sums)
+    check(np.array_equal(sums, ref["sums"]),
+          f"swarm per-quad grid sums differ from the port's CPU run in "
+          f"{int((sums != ref['sums']).sum())} quads")
+    check(ck == int(ref["checksum"]), f"swarm checksum {ck}")
+    check(int((fin.mapper.grid != 0).sum()) > 100 * B, "the swarm mapped "
+                                                        "nothing")
+    dt = min(times)
+    busy = _profiled_busy(lambda: _run_swarm(world, st0), ("map_step",))
+    key = next(k for k in busy["kernel_device_ms"] if "map_step" in k)
+    profiled = busy["kernel_launches"][key]
+    ms = busy["kernel_device_ms"][key] / profiled
+    states = np.bincount(diag["state"][-1].cpu().numpy(), minlength=10)
+    say("bench", metric=METRIC["swarm"], value=B * T / dt,
+        unit="quad-ticks/s", checksum=ck,
+        checksum_port_cpu=int(ref["checksum"]),
+        per_quad_sums_equal_port_cpu=True,
+        checksum_tpu_record=CHECKSUM_REF["swarm"],
+        checksum_tpu_record_note="drawn by jax.random, another generator",
+        launches={k: v for k, v in n_launch.items() if v},
+        launches_per_run=n_launch["map_step"] / runs, rep_seconds=times,
+        device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
+        kernel_device_ms=busy["kernel_device_ms"],
+        kernel_launches=busy["kernel_launches"],
+        host_total=busy["host_total"],
+        profiled_wall_s=busy["profiled_wall_s"],
+        device_idle_share=(None if busy["busy_ms"] is None
+                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        final_state_counts=states.tolist(), B=B, T=T, reps=reps,
+        dt_ms=testdata.SWARM_RUN["dt_ms"], card=smi)
+    alone = _map_step_alone(ticks)
+    check(alone["max_abs_err"] == 0,
+          f"map_step vs plain max abs err {alone['max_abs_err']}")
+    say("kernel_alone", kernel="map_step", ms=ms,
+        ms_profiled_launches=profiled, **alone, card=smi)
+    return {"name": "map_step", "route": "cuda", **KERNELS["map_step"],
+            "launches": n_launch["map_step"],
+            "max_abs_err": alone["max_abs_err"], "ms": ms,
+            "plain_ms": alone["plain_ms"], "bound_ms": alone["bound_ms"],
+            "bound_by": alone["bound_by"], "library_ms": None,
+            "also_serves": ["micro_quad_slam_tpu/ops/pallas_raycast.py:98",
+                            "micro_quad_slam_tpu/ops/pallas_raycast.py:212"]}
 
 
 def _jax_package_loaded() -> list:
@@ -1077,15 +1343,18 @@ def main() -> int:
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
     phase_slam_kernels_vs_plain(device)
+    phase_map_step_vs_plain(device)
     phase_golden(device)
     phase_resume(device)
     phase_slam_vs_jax(device)
+    phase_swarm_vs_jax(device)
     kernels = [phase_bench(device, smi, "residentx"),
                phase_bench(device, smi, "hybridx", plain_reps=1)]
     slam = phase_slam_bench(device, smi, "ul", 128)
     phase_slam_bench(device, smi, "rt", 256)
     phase_ekf_bench(device, smi)
-    kernels += [slam["match_lattice"], slam["replay_exact_snap"]]
+    kernels += [slam["match_lattice"], slam["replay_exact_snap"],
+                phase_swarm_bench(device, smi)]
     loaded = _jax_package_loaded()
     check(not loaded, f"the port imported jax or the JAX package: {loaded}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,12 @@ Hopper kernel (ops/conex.py, csrc/replay_cone.cu); the EKF fusion replay
 (ops/ekf.py, replay/fusion.py); and the SLAM replay (slam/pipeline.py)
 with its pose graph (slam/posegraph.py), scan matcher (ops/scanmatch.py)
 and lattice kernel (ops/matchlattice.py, csrc/match_lattice.cu), and the
-exact kernel's snapshot and scheduled-chunk entries (ops/residentx.py).
+exact kernel's snapshot and scheduled-chunk entries (ops/residentx.py);
+and the closed-loop swarm simulator (models/simulator.py) with the UL
+behaviour machine (models/behavior.py), the frontier queries
+(ops/raycast.py), the LK vision flow (ops/flow.py) and the exact
+kernel's map-step entry (ops/residentx.py::map_step), which the mapping
+replay's per-frame "pallas" and "pallas_db" names also take.
 
 The port imports nothing of the JAX package, not even its modules that
 do not import jax: it keeps its own copy of the configuration

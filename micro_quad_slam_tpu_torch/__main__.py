@@ -8,11 +8,14 @@
   python -m micro_quad_slam_tpu_torch slam --log scanlog.bin [more.bin ...]
       [--profile ul|cl|ul-rt] [--kf-every N] [--gn-iters N]
       [--track track.csv] [--out map.npy] [--device cuda|cpu]
+  python -m micro_quad_slam_tpu_torch sim [--quads N] [--seconds S]
+      [--dt-ms MS] [--seed N] [--profile ul|cl] [--vision-flow]
+      [--out-prefix PREFIX] [--device cuda|cpu]
 
-The counterparts of `mqs replay`, `mqs fusion` and `mqs slam`
-(micro_quad_slam_tpu/cli.py) for scanlog input; they print the same
-per-flight summary lines.  They run on the CUDA device; without one they
-exit with status 2 unless given --device cpu.
+The counterparts of `mqs replay`, `mqs fusion`, `mqs slam` and `mqs sim`
+(micro_quad_slam_tpu/cli.py); they print the same summary lines.  They
+run on the CUDA device; without one they exit with status 2 unless given
+--device cpu.
 """
 
 from __future__ import annotations
@@ -207,6 +210,46 @@ def cmd_slam(args) -> int:
     return 0
 
 
+def cmd_sim(args) -> int:
+    from collections import Counter
+
+    from micro_quad_slam_tpu_torch.formats.scanlog import write_scanlog
+    from micro_quad_slam_tpu_torch.models.simulator import (
+        make_world, sim_diag_to_scanlogs, sim_init, sim_run)
+    from micro_quad_slam_tpu_torch.ops.raycast import logical_grid
+    from micro_quad_slam_tpu_torch.utils.obs import STATE_NAMES_UL
+
+    device = _device(args.device, "simulate")
+    if device is None:
+        return 2
+    B = args.quads
+    world = make_world(B, room=(-3.5, -3.5, 3.5, 3.5),
+                       obstacles=[(1.5, -0.5, 2.5, 0.5)], device=device)
+    st = sim_init(B, args.seed, spread_m=0.5, device=device)
+    steps = int(args.seconds * 1000 / args.dt_ms)
+    record = bool(args.out_prefix)
+    st, diag = sim_run(st, world, steps, _profile(args.profile),
+                       dt_ms=args.dt_ms, record=record,
+                       vision_flow=args.vision_flow)
+    states = diag["state"][-1].cpu().numpy()
+    mix = Counter(STATE_NAMES_UL[s] for s in states)
+    grids = logical_grid(st.mapper.grid).cpu().numpy()
+    occ = (grids > 10).reshape(B, -1).sum(1)
+    pose_err = float(diag["pose_err"][-1].max())
+    print(f"swarm {B} quads x {args.seconds}s: final states {dict(mix)}; "
+          f"occupied cells/quad median={int(np.median(occ))}; "
+          f"pose err max={pose_err:.3f} m")
+    if args.out_prefix:
+        np.save(f"{args.out_prefix}_grids.npy", grids)
+        print(f"grids -> {args.out_prefix}_grids.npy")
+        logs = sim_diag_to_scanlogs(diag)
+        for b, lg in enumerate(logs[:4]):
+            write_scanlog(f"{args.out_prefix}_q{b}.bin", lg)
+        print(f"scanlogs -> {args.out_prefix}_q*.bin "
+              f"(first {min(4, len(logs))} quads)")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m micro_quad_slam_tpu_torch",
                                 description=__doc__)
@@ -219,10 +262,12 @@ def main(argv=None) -> int:
     pr.add_argument("--out", help="write each flight's logical grid as .npy")
     pr.add_argument("--profile", default="ul", choices=("ul", "cl"))
     pr.add_argument("--kernel", default="xla", choices=KERNELS,
-                    help="xla: per-frame plain torch path; residentx (and "
-                         "its aliases resident, pallas, pallas_db, mxu, "
-                         "mxu2): the whole replay through the exact CUDA "
-                         "kernel (both bit-exact reference semantics); "
+                    help="xla: per-frame plain torch path; pallas and "
+                         "pallas_db: per frame through the exact CUDA "
+                         "kernel's map-step entry; residentx (and its "
+                         "aliases resident, mxu, mxu2): the whole replay "
+                         "through the exact CUDA kernel (all bit-exact "
+                         "reference semantics); "
                          "cone/hybrid: the "
                          "dense production modes, per frame in plain torch; "
                          "conex/resident_cone (cone) and hybridx (hybrid): "
@@ -261,6 +306,28 @@ def main(argv=None) -> int:
                                     "tracks as CSV")
     ps.add_argument("--device", default="cuda", help=device_help)
     ps.set_defaults(fn=cmd_slam)
+
+    pm = sub.add_parser(
+        "sim", help="closed-loop swarm simulation",
+        epilog="--emit-mavlink, --save-state and --resume (the JAX CLI's "
+               "MAVLink stream and checkpoints) wait for the port's mavlink "
+               "and checkpoint modules and are not offered yet.")
+    pm.add_argument("--quads", type=int, default=16)
+    pm.add_argument("--seconds", type=float, default=20.0)
+    pm.add_argument("--dt-ms", type=int, default=20)
+    pm.add_argument("--seed", type=int, default=0,
+                    help="seed of the start poses and the scan noise (a "
+                         "torch generator: not the JAX CLI's draws)")
+    pm.add_argument("--profile", default="ul", choices=("ul", "cl"))
+    pm.add_argument("--out-prefix",
+                    help="write the logical grids (.npy) and the first 4 "
+                         "quads' scanlogs (PREFIX_q<b>.bin)")
+    pm.add_argument("--vision-flow", action="store_true",
+                    help="localize with pyramidal LK optical flow on "
+                         "rendered downward-camera frames instead of the "
+                         "oracle flow sensor")
+    pm.add_argument("--device", default="cuda", help=device_help)
+    pm.set_defaults(fn=cmd_sim)
     args = p.parse_args(argv)
     return args.fn(args)
 

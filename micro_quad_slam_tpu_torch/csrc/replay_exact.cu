@@ -25,6 +25,18 @@
 // into snaps[b, slot].  The matcher scores every slot of the chunk against
 // those chunk-start slabs.
 //
+// The map-step entry (mqs_map_step) replaces
+// micro_quad_slam_tpu/ops/pallas_residentx.py::_map_step_kernel, the
+// closed-loop simulator's scan tick (and, through ops/residentx.py::
+// map_step, the per-frame window kernels pallas_raycast.py::_window_kernel
+// and _window_kernel_db).  It is one frame of the same walk, with no
+// recenter and no scratch.  The TPU kernel copied each quad's aligned
+// [96, 256] window into VMEM and back, because XLA's batched dynamic
+// slice took most of the TPU's tick; here the rays walk the grid in device
+// memory where it lies, so there is nothing to copy.  A scan tick touches
+// at most 32 x 42 cells of each grid: like the replay, the entry is bound
+// by the latency of 32 dependent ray steps, not by bytes or operations.
+//
 // What bounds it on this card: not bytes or arithmetic.  A frame touches
 // at most 32 rays x 42 cells of a 389,120-byte grid, so the whole B=1024 x
 // T=256 replay moves well under a gigabyte.  The cost is latency: each ray
@@ -88,6 +100,34 @@ __device__ inline void copy_slab(const int8_t* g, int8_t* dst, int r0, int c0,
   }
 }
 
+// One frame's 32 rays (its words w, staged in shared memory) on grid g, in
+// reference order: the cells of a ray in parallel, lane k at dominant-axis
+// step k with the closed-form Bresenham minor offset, and a barrier between
+// rays.  Called by the whole block.
+__device__ inline void walk_rays(int8_t* g, const int32_t* w, int pcols,
+                                 int lo_min, int lo_max, int free_dec) {
+  int8_t* pose = g + w[kPcy] * pcols + w[kPcx];
+  for (int r = 0; r < kRays; ++r) {
+    const int32_t* ray = w + kHdr + r * kRayWords;
+    if (!ray[3]) continue;               // invalid ray: uniform over the block
+    const int ex = ray[0], ey = ray[1], ed = ray[2];
+    const int dx = abs(ex), dy = abs(ey);
+    const int sx = ex > 0 ? 1 : -1, sy = ey > 0 ? 1 : -1;
+    const bool xmaj = dx >= dy;
+    const int dmaj = xmaj ? dx : dy, dmin = xmaj ? dy : dx;
+    const int den = max(2 * dmaj, 1);
+    for (int k = threadIdx.x; k <= dmaj; k += blockDim.x) {
+      const int m = (2 * k * dmin + dmaj) / den;   // all >= 0: floor
+      const int u = sx * (xmaj ? k : m);
+      const int v = sy * (xmaj ? m : k);
+      int8_t* cell = pose + v * pcols + u;
+      const int d = k == dmaj ? ed : -free_dec;
+      *cell = static_cast<int8_t>(min(max(*cell + d, lo_min), lo_max));
+    }
+    __syncthreads();                     // the next ray may share cells
+  }
+}
+
 template <bool kSnap>
 __global__ void __launch_bounds__(kThreads)
 replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
@@ -117,30 +157,23 @@ replay_exact_kernel(int8_t* grids, const int32_t* sched, int8_t* scratch,
       __syncthreads();                   // read the slabs before any ray
     }
 
-    if (w[kAny]) {
-      int8_t* pose = g + w[kPcy] * geo.pcols + w[kPcx];
-      for (int r = 0; r < kRays; ++r) {
-        const int32_t* ray = w + kHdr + r * kRayWords;
-        if (!ray[3]) continue;           // invalid ray: uniform over the block
-        const int ex = ray[0], ey = ray[1], ed = ray[2];
-        const int dx = abs(ex), dy = abs(ey);
-        const int sx = ex > 0 ? 1 : -1, sy = ey > 0 ? 1 : -1;
-        const bool xmaj = dx >= dy;
-        const int dmaj = xmaj ? dx : dy, dmin = xmaj ? dy : dx;
-        const int den = max(2 * dmaj, 1);
-        for (int k = threadIdx.x; k <= dmaj; k += blockDim.x) {
-          const int m = (2 * k * dmin + dmaj) / den;   // all >= 0: floor
-          const int u = sx * (xmaj ? k : m);
-          const int v = sy * (xmaj ? m : k);
-          int8_t* cell = pose + v * geo.pcols + u;
-          const int d = k == dmaj ? ed : -free_dec;
-          *cell = static_cast<int8_t>(min(max(*cell + d, lo_min), lo_max));
-        }
-        __syncthreads();                 // the next ray may share cells
-      }
-    }
+    if (w[kAny]) walk_rays(g, w, geo.pcols, lo_min, lo_max, free_dec);
     __syncthreads();                     // w[] is reloaded next frame
   }
+}
+
+// The map-step entry: one frame per quad, words [B, kWords] (do = 0), no
+// recenter.  A quad with no valid ray (header word kAny = 0) is left as it
+// is.
+__global__ void __launch_bounds__(kThreads)
+map_step_kernel(int8_t* grids, const int32_t* words, int pcols,
+                long long plane, int lo_min, int lo_max, int free_dec) {
+  __shared__ int32_t w[kWords];
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x)
+    w[i] = words[static_cast<long long>(blockIdx.x) * kWords + i];
+  __syncthreads();
+  if (!w[kAny]) return;                  // uniform over the block
+  walk_rays(grids + blockIdx.x * plane, w, pcols, lo_min, lo_max, free_dec);
 }
 
 }  // namespace
@@ -184,5 +217,21 @@ extern "C" int mqs_replay_exact_snap(void* grids, const void* sched,
           static_cast<int8_t*>(grids), static_cast<const int32_t*>(sched),
           static_cast<int8_t*>(scratch), T, geo, lo_min, lo_max, free_dec,
           Snap{static_cast<int8_t*>(snaps), n_kf, rows, cols});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One exact scan update per quad (the closed-loop simulator's scan tick):
+// grids int8 [B, prows, pcols] updated in place, words int32 [B, words], one
+// frame of the schedule layout with do = 0 (ops/residentx.py::map_step).
+// One block of kThreads threads per quad.  Launches on `stream` and returns
+// cudaGetLastError(); it does not synchronise.
+extern "C" int mqs_map_step(void* grids, const void* words, int B, int nwords,
+                            int prows, int pcols, int lo_min, int lo_max,
+                            int free_dec, void* stream) {
+  if (nwords != kWords || B <= 0 || prows <= 0 || pcols <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  map_step_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(grids), static_cast<const int32_t*>(words), pcols,
+      static_cast<long long>(prows) * pcols, lo_min, lo_max, free_dec);
   return static_cast<int>(cudaGetLastError());
 }

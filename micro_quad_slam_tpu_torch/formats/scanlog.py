@@ -1,16 +1,17 @@
-"""Reader of the reference's scanlog.bin, the replay input (numpy only).
+"""The reference's scanlog.bin, the replay input (numpy only).
 
 The reference logs one packed 569-byte record per accepted ToF scan
 (`scanrec_t`, uav_local_nav.c:1522-1547) after a one-time 7-byte file
-header "SCLOG2\\n" (uav_local_nav.c:1505).  This is the reader half of
-the JAX package's formats/scanlog.py, byte layout and all: it returns the
-fields that the replay reads (replay/mapping.py::scanlog_to_arrays), with
-the same dtypes.
+header "SCLOG2\\n" (uav_local_nav.c:1505).  This is the JAX package's
+formats/scanlog.py, byte layout and all: the reader returns every field
+of the records with the same dtypes, and the writer (write_scanlog) gives
+the same bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 from typing import BinaryIO, Union
 
 import numpy as np
@@ -32,23 +33,39 @@ assert SCANREC_DTYPE.itemsize == SCANREC_BYTES
 
 @dataclasses.dataclass
 class ScanLog:
-    """The replay's and the EKF's fields of T records; `grid_mm` is the
-    u16 ToF grid [T, 4, 8, 8] in sensor order F, R, B, L."""
+    """Struct-of-arrays view of T records; `grid_mm` is the u16 ToF grid
+    [T, 4, 8, 8] in sensor order F, R, B, L."""
 
+    host_ms: np.ndarray      # u32 [T]
+    scan_ms: np.ndarray      # u32 [T] sensor-side clock
     x_m: np.ndarray          # f32 [T]
     y_m: np.ndarray          # f32 [T]
     yaw_deg: np.ndarray      # f32 [T]
+    alt_m: np.ndarray        # f32 [T]
+    roll_rad: np.ndarray     # f32 [T]
+    pitch_rad: np.ndarray    # f32 [T]
+    rf_m: np.ndarray         # f32 [T] rangefinder distance
     of_rate_x: np.ndarray    # f32 [T]
+    of_rate_y: np.ndarray    # f32 [T]
     of_q: np.ndarray         # u8  [T]
     state: np.ndarray        # u8  [T]
+    kf_flags: np.ndarray     # u8  [T]
     sys_health: np.ndarray   # u32 [T]
     grid_mm: np.ndarray      # u16 [T, 4, 8, 8]
-    scan_ms: np.ndarray      # u32 [T] sensor-side clock
-    of_rate_y: np.ndarray    # f32 [T]
-    rf_m: np.ndarray         # f32 [T] rangefinder distance
 
     def __len__(self) -> int:
         return int(self.x_m.shape[0])
+
+    def to_records(self) -> np.ndarray:
+        T = len(self)
+        rec = np.zeros(T, dtype=SCANREC_DTYPE)
+        rec["magic"] = SCANREC_MAGIC
+        for f in dataclasses.fields(self):
+            if f.name != "grid_mm":
+                rec[f.name] = getattr(self, f.name)
+        rec["grid_raw"] = (np.ascontiguousarray(self.grid_mm, dtype="<u2")
+                           .reshape(T, 256).view("u1").reshape(T, 512))
+        return rec
 
 
 def read_scanlog(src: Union[str, bytes, BinaryIO],
@@ -77,12 +94,31 @@ def read_scanlog(src: Union[str, bytes, BinaryIO],
             raise ValueError(f"{int(bad.sum())}/{len(rec)} records have "
                              f"bad magic")
         rec = rec[~bad]
-    field = lambda k: np.ascontiguousarray(rec[k])              # noqa: E731
     return ScanLog(
-        x_m=field("x_m"), y_m=field("y_m"), yaw_deg=field("yaw_deg"),
-        of_rate_x=field("of_rate_x"), of_q=field("of_q"),
-        state=field("state"), sys_health=field("sys_health"),
+        **{f.name: np.ascontiguousarray(rec[f.name])
+           for f in dataclasses.fields(ScanLog) if f.name != "grid_mm"},
         grid_mm=np.ascontiguousarray(
-            rec["grid_raw"].view("<u2").reshape(-1, 4, 8, 8)),
-        scan_ms=field("scan_ms"), of_rate_y=field("of_rate_y"),
-        rf_m=field("rf_m"))
+            rec["grid_raw"].view("<u2").reshape(-1, 4, 8, 8)))
+
+
+def write_scanlog(dst: Union[str, BinaryIO], log: ScanLog,
+                  append: bool = False) -> None:
+    """Write a ScanLog in the reference's on-disk format: the file header
+    at the start of the file only, then the records."""
+    payload = log.to_records().tobytes()
+
+    def _emit(f: BinaryIO, at_start: bool) -> None:
+        if at_start:
+            f.write(SCANLOG_FILE_HEADER)
+        f.write(payload)
+
+    if isinstance(dst, str):
+        with open(dst, "ab" if append else "wb") as f:
+            _emit(f, f.tell() == 0)
+    else:
+        at_start = True
+        try:
+            at_start = dst.tell() == 0
+        except (OSError, io.UnsupportedOperation):
+            pass
+        _emit(dst, at_start)

@@ -45,6 +45,12 @@ class EkfState(NamedTuple):
 
 def ekf_init(batch: tuple = (), x0=0.0, y0=0.0, pos_var=1e-4, vel_var=1e-2,
              z0=0.0, yaw0=0.0, yaw_var=1e-2, device=None) -> EkfState:
+    """The initial state of a batch of filters on `device` (the CUDA device
+    unless told otherwise, replay/mapping.py::as_device); x0, y0, z0 and
+    yaw0 are floats or tensors of shape `batch`."""
+    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+
+    device = as_device(device)
     mean = torch.zeros(batch + (_N,), dtype=torch.float32, device=device)
     for i, v in ((_IX, x0), (_IY, y0), (_IZ, z0), (_IYAW, yaw0)):
         mean[..., i] = _f(v) if isinstance(v, float) else v

@@ -78,8 +78,12 @@ def _f(x) -> float:
 
 def new_padded_grid(geom: GridGeom = DEFAULT_GEOM, batch: tuple = (),
                     device=None) -> torch.Tensor:
+    """Zero padded grids [*batch, PR, PC] on `device` (the CUDA device
+    unless told otherwise, replay/mapping.py::as_device)."""
+    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+
     return torch.zeros(batch + (geom.prows, geom.pcols), dtype=torch.int8,
-                       device=device)
+                       device=as_device(device))
 
 
 def logical_grid(padded: torch.Tensor, geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:
@@ -364,3 +368,85 @@ def recenter_apply(
         cs, geom.pad, geom.width)                                       # [N, PC]
     keep = row_ok[:, :, None] & col_ok[:, None, :]
     return torch.where(keep, rolled, torch.zeros((), dtype=torch.int8, device=dev))
+
+
+def recenter_grid(
+    padded_grid: torch.Tensor,
+    origin_x, origin_y,
+    x_m, y_m,
+    pose_ok,
+    cfg: MapConfig = MapConfig(),
+    geom: GridGeom = DEFAULT_GEOM,
+):
+    """Conditional whole-cell grid shift (uav_local_nav.c:324-353) of a
+    batch: recenter_decide, then recenter_apply on the quads that
+    recenter.  padded_grid [N, PR, PC], the rest [N].  Returns (grid,
+    origin_x, origin_y, recentered flag); the inputs are left as they
+    were."""
+    sx, sy, do = recenter_decide(origin_x, origin_y, x_m, y_m, pose_ok, cfg)
+    shifted = recenter_apply(padded_grid, sx, sy, cfg, geom)
+    grid = torch.where(do[:, None, None], shifted, padded_grid)
+    res = _f(cfg.res_m)
+    origin_x = torch.where(do, origin_x + sx.to(torch.float32) * res, origin_x)
+    origin_y = torch.where(do, origin_y + sy.to(torch.float32) * res, origin_y)
+    return grid, origin_x, origin_y, do
+
+
+def _frontier_step_dists(cfg: MapConfig) -> np.ndarray:
+    """Reproduce the C loop `for (d = step; d <= max_range; d += step)` with
+    float32 accumulation: the step count is float-sensitive
+    (uav_local_nav.c:370).  Host numpy, as the JAX module does it."""
+    step = _F32(cfg.res_m) * _F32(cfg.frontier_step_cells)
+    out = []
+    d = step
+    while d <= _F32(cfg.frontier_range_m):
+        out.append(d)
+        d = _F32(d + step)
+    return np.asarray(out, np.float32)
+
+
+def frontier_scores(
+    padded_grid: torch.Tensor,
+    x_m, y_m, yaw_deg,
+    offsets_deg,
+    origin_x, origin_y,
+    inited,
+    cfg: MapConfig = MapConfig(),
+    geom: GridGeom = DEFAULT_GEOM,
+) -> torch.Tensor:
+    """frontier_score_dir (uav_local_nav.c:356-385) for several query
+    directions of a batch of quads at once.
+
+    padded_grid int8 [N, PR, PC]; poses, origins and inited [N];
+    offsets_deg a static sequence of D query offsets (e.g. (0, 90, -90,
+    180)).  Each direction casts cfg.frontier_ray_offsets_deg's 3 rays of
+    S steps; the [N, D, 3, S] cells are read with one gather.  A ray
+    stepping out of the logical grid stops contributing from that step on
+    (lines are monotone, so the C `break` equals masking every step out of
+    the grid).  Returns int32 [N, D] scores."""
+    dev = padded_grid.device
+    offs = torch.from_numpy(np.asarray(offsets_deg, np.float32)).to(dev)
+    rays = torch.from_numpy(
+        np.asarray(cfg.frontier_ray_offsets_deg, np.float32)).to(dev)
+    dists = torch.from_numpy(_frontier_step_dists(cfg)).to(dev)      # [S]
+
+    e = lambda a: a[:, None, None, None]                              # noqa: E731
+    ang = ((yaw_deg[:, None] + offs[None, :])[:, :, None]
+           + rays[None, None, :]) * _f(_DEG2RAD)                       # [N, D, 3]
+    ca, sa = _cos_f32(ang), _sin_f32(ang)
+    px = e(x_m) + dists * ca[..., None]                               # [N, D, 3, S]
+    py = e(y_m) + dists * sa[..., None]
+    cx, cy = world_to_cell(px, py, e(origin_x), e(origin_y), cfg.res_m,
+                           cfg.width // 2, cfg.height // 2)
+    inb = (cx >= 0) & (cx < cfg.width) & (cy >= 0) & (cy < cfg.height)
+    cxs = cx.clamp(0, cfg.width - 1).long() + geom.pad
+    cys = cy.clamp(0, cfg.height - 1).long() + geom.pad
+    n = torch.arange(padded_grid.shape[0], device=dev)
+    v = padded_grid[e(n), cys, cxs].to(torch.int32)                   # [N, D, 3, S]
+    m = inb & e(inited)
+    band = cfg.frontier_unknown_band
+    unknown = (m & (v >= -band) & (v <= band)).sum(dim=(-1, -2))
+    occ = (m & (v > cfg.frontier_occ_thresh)).sum(dim=(-1, -2))
+    free = (m & (v < cfg.frontier_free_thresh)).sum(dim=(-1, -2))
+    return (unknown * cfg.frontier_w_unknown + free * cfg.frontier_w_free
+            - occ * cfg.frontier_w_occ).to(torch.int32)

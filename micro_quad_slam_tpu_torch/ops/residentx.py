@@ -31,6 +31,12 @@ their schedule from given poses and origins with every frame enabled
 `map_snap` with `replay_exact_snap`, the kernel's snapshot entry, which
 also copies each keyframe chunk's start-of-chunk map slabs for the
 matcher.
+
+`map_step` (counterpart of pallas_residentx.py's pallas_map_step, the
+closed-loop simulator's scan tick) applies ONE frame of words per quad,
+with no recenter, through the kernel's map-step entry (mqs_map_step); it
+needs no host sync.  The replay's per-frame kernel names "pallas" and
+"pallas_db" (pallas_raycast.py's window kernels) run through it too.
 """
 
 from __future__ import annotations
@@ -323,6 +329,70 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
 
 
 replay_exact_snap.launches = 0
+
+
+def _step_words(beams, x, y, yaw_deg, origin_x, origin_y, enabled,
+                cfg: PipelineConfig, geom: GridGeom) -> torch.Tensor:
+    """One scan per quad (beams [B, 4, 8], the rest [B]) -> its frame of
+    schedule words int32 [B, WORDS], with do = 0."""
+    lead = lambda a: a[:, None]                                       # noqa: E731
+    rays = make_rays(lead(beams), lead(x), lead(y), lead(yaw_deg),
+                     lead(origin_x), lead(origin_y), lead(enabled), cfg.map,
+                     cfg.tof)
+    zero = torch.zeros_like(rays["pcx"])
+    return _pack(rays, zero, zero, zero, geom)[:, 0].contiguous()
+
+
+def map_step_plain(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
+                   cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """Plain torch version of map_step, on any device: the same words,
+    then window_scan_update on every quad's window (a quad with no valid
+    ray gets its window back unchanged).  Updates grids in place and
+    returns them."""
+    check_supported(cfg, geom)
+    words = _step_words(beams, x, y, yaw_deg, origin_x, origin_y, enabled,
+                        cfg, geom)
+    check_operands(grids, words[:, None], geom)
+    return apply_rays_(grids, _frame_rays(words, geom), cfg.map, geom)
+
+
+def map_step(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
+             cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """ONE exact scan update per quad on its padded int8 grid [B, PR, PC],
+    in place (counterpart of pallas_residentx.py::pallas_map_step, the
+    closed-loop simulator's scan tick): beams [B, 4, 8], poses, origins
+    and enabled [B].  A disabled quad, or one whose pose make_rays gates
+    out, keeps its grid untouched.  A CUDA tensor goes to the kernel's
+    map-step entry (csrc/replay_exact.cu, mqs_map_step), a CPU tensor to
+    map_step_plain; any other device raises.  Returns grids;
+    `map_step.launches` counts the kernel launches."""
+    if grids.device.type == "cpu":
+        return map_step_plain(grids, beams, x, y, yaw_deg, origin_x,
+                              origin_y, enabled, cfg, geom)
+    if grids.device.type != "cuda":
+        raise ValueError(f"no map step kernel for device {grids.device}")
+    check_supported(cfg, geom)
+    words = _step_words(beams, x, y, yaw_deg, origin_x, origin_y, enabled,
+                        cfg, geom)
+    check_operands(grids, words[:, None], geom)
+    B = grids.shape[0]
+    if B == 0:
+        return grids
+    fn = _build.load_library("replay_exact").mqs_map_step
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    m = cfg.map
+    with torch.cuda.device(grids.device):
+        stream = torch.cuda.current_stream(grids.device).cuda_stream
+        err = fn(grids.data_ptr(), words.data_ptr(), B, WORDS, geom.prows,
+                 geom.pcols, m.lo_min, m.lo_max, m.lo_free_dec, stream)
+    if err != 0:
+        raise RuntimeError(f"map_step kernel launch failed: CUDA error {err}")
+    map_step.launches += 1
+    return grids
+
+
+map_step.launches = 0
 
 
 def track_schedule(beams, x, y, yaw_deg, ox, oy, do, rsy, rsx,

@@ -16,9 +16,11 @@ Every function takes tensors with a leading flight dimension [B] and runs
 on the device those tensors live on; the functions that make tensors
 (frames_to_torch, mapping_init, mapping_state_from_numpy) put them on the
 CUDA device unless the caller passes another.  `kernel="xla"` is the
-per-frame plain torch path of the exact mode, "cone" and "hybrid" those
-of the dense production modes (ops/conemode.py).  The exact whole-replay
-names go to ops/residentx.replay_residentx, the cone and hybrid ones to
+per-frame plain torch path of the exact mode, "pallas" and "pallas_db"
+its per-frame path through the exact kernel's map-step entry
+(ops/residentx.map_step), "cone" and "hybrid" the per-frame paths of the
+dense production modes (ops/conemode.py).  The exact whole-replay names
+go to ops/residentx.replay_residentx, the cone and hybrid ones to
 ops/conex.replay_conex; each launches its Hopper kernel for CUDA tensors.
 """
 
@@ -56,13 +58,14 @@ ST_HOVER, ST_LANDING = 5, 8
 # Keyframe flag bit for recentering (uav_local_nav.c:225)
 KF_MAP_RECENTER = 1 << 5
 
-# kernel names with reference-exact semantics: all go to the whole-replay
-# exact kernel (the JAX package's per-step and matmul formulations of the
-# same update give bit-identical grids)
-EXACT_KERNELS = ("residentx", "resident", "pallas", "pallas_db", "mxu", "mxu2")
-# the per-frame plain torch paths: the exact update and the dense
-# production modes
-PER_FRAME_KERNELS = ("xla", "cone", "hybrid")
+# kernel names with reference-exact semantics that go to the whole-replay
+# exact kernel (the JAX package's whole-replay and matmul formulations of
+# the same update give bit-identical grids)
+EXACT_KERNELS = ("residentx", "resident", "mxu", "mxu2")
+# the per-frame paths: the exact update in plain torch ("xla") and through
+# the exact kernel's map-step entry ("pallas", "pallas_db": the JAX
+# package's per-frame window kernels), and the dense production modes
+PER_FRAME_KERNELS = ("xla", "pallas", "pallas_db", "cone", "hybrid")
 # these names run the whole replay through the cone kernel (name ->
 # hybrid?; "resident_cone" is the JAX package's v1 cone kernel, the same
 # cone semantics)
@@ -183,8 +186,10 @@ def mapping_step(
     geom: GridGeom = DEFAULT_GEOM,
     kernel: str = "xla",
 ):
-    """One scanrec (for the whole [B] batch) through the mapper, on the
-    plain torch path: the exact update ("xla"), or the dense "cone" or
+    """One scanrec (for the whole [B] batch) through the mapper: the exact
+    update in plain torch ("xla") or through ops/residentx.map_step
+    ("pallas", "pallas_db": the map-step kernel on a CUDA device, its
+    plain version on the CPU; bit-equal to "xla"), or the dense "cone" or
     "hybrid" one (ops/conemode.py).  Returns (new state, outs); the input
     state is not modified.
 
@@ -217,6 +222,10 @@ def mapping_step(
         rays = make_rays(beams, x, y, yaw, origin_x, origin_y, enabled,
                          cfg.map, cfg.tof)
         apply_rays_(grid, rays, cfg.map, geom)
+    elif kernel in ("pallas", "pallas_db"):
+        from micro_quad_slam_tpu_torch.ops.residentx import map_step
+        map_step(grid, beams, x, y, yaw, origin_x, origin_y, enabled, cfg,
+                 geom)
     else:
         inp = conemode.scan_inputs(beams, x, y, yaw, origin_x, origin_y,
                                    enabled, cfg.map, cfg.tof, geom,
@@ -282,7 +291,8 @@ def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
     frames_to_torch), all on one device -> (MappingState [B], outs [B, T]).
     Every exact kernel name gives grids bit-equal to the reference;
     "residentx" (and its aliases) runs the whole replay through the exact
-    Hopper kernel on a CUDA device.  "cone" and "hybrid" are the dense
+    Hopper kernel on a CUDA device, "pallas" and "pallas_db" go frame by
+    frame through its map-step entry.  "cone" and "hybrid" are the dense
     production modes, per frame in plain torch; "conex" and
     "resident_cone" (cone) and "hybridx" (hybrid) run the whole replay
     through the cone Hopper kernel, bit-equal to the per-frame path.

@@ -40,6 +40,26 @@ Beside the flights, reference results of the JAX package's replay
                            inputs under `in_`) with the trimmed profile of
                            tests/test_slam.py::test_slam_small_end_to_end,
                            kf_every 10, gn_iters 4, stage by stage
+    swarm_small_jax        its closed-loop simulator on bench.py's swarm
+                           configuration (bench.py:45-81) cut to B=8:
+                           the start state sim_init(8, PRNGKey(0),
+                           spread_m=0.5, airborne=True) under `start.`
+                           (nested fields joined by dots, no key), its 10
+                           scan ticks' draws `normal` and `uniform`
+                           [10, 8, 4, 8, 8], and the results of
+                           sim_run(T=1000, dt_ms=1, record=True): the
+                           behaviour-state and cmd_kind traces [1000, 8],
+                           the final padded grids, frontier scores, true
+                           poses x, y, yaw and EKF means
+
+and one result of the port itself:
+
+    swarm_bench_ref        the port's CPU run of the B=1024 bench swarm
+                           (swarm_bench: sim_init(1024, seed 0,
+                           airborne) with its own generator's draws):
+                           `checksum` and per-quad grid `sums` [1024];
+                           torch's generator draws other numbers than
+                           jax.random, so it is not the TPU record
 
 tests/test_torch_testdata.py holds every file bit-equal to what the JAX
 package's flight simulator, golden model and replay give now (re-deriving
@@ -57,7 +77,13 @@ import numpy as np
 NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
          "golden_short_beams", "bench_flight", "slam_bench_flights")
 REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
-              "slam_stages")
+              "slam_stages", "swarm_small_jax", "swarm_bench_ref")
+
+# bench.py's swarm workload (bench.py:45-81): world, start and run
+SWARM_WORLD = {"room": (-3.5, -3.5, 3.5, 3.5),
+               "obstacles": ((1.5, -0.5, 2.5, 0.5),)}
+SWARM_RUN = {"dt_ms": 1, "scan_period_ms": 100}
+SWARM_T, SWARM_B = 1000, 1024
 
 
 def path(name: str) -> str:
@@ -122,3 +148,75 @@ def slam_bench_frames(B: int, T: int = 256, device=None) -> dict:
     nrep = -(-B // 4)
     return frames_to_torch({k: np.concatenate([v] * nrep)[:B]
                             for k, v in base.items()}, device)
+
+
+def _unflatten(flat: dict) -> dict:
+    """{"a.b": v} -> {"a": {"b": v}}."""
+    out: dict = {}
+    for key, v in flat.items():
+        *head, last = key.split(".")
+        d = out
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return out
+
+
+def swarm_small(device=None):
+    """The committed JAX small swarm (swarm_small_jax) as the port's
+    inputs: (world, start state, the 10 scan ticks' draws, the reference
+    dict), on `device` (the CUDA device unless told otherwise)."""
+    import torch
+
+    from micro_quad_slam_tpu_torch.models.simulator import (
+        make_world, sim_state_from_numpy)
+
+    ref = reference("swarm_small_jax")
+    start = _unflatten({k[len("start."):]: v for k, v in ref.items()
+                        if k.startswith("start.")})
+    st = sim_state_from_numpy(start, device)
+    draws = [(torch.from_numpy(n), torch.from_numpy(u))
+             for n, u in zip(ref["normal"], ref["uniform"])]
+    world = make_world(st.x.shape[0], **SWARM_WORLD, device=st.x.device)
+    return world, st, draws, ref
+
+
+def swarm_bench(lanes=None, device=None):
+    """The port's bench swarm: (world, start state, draws) of B=1024 quads
+    from sim_init(1024, seed 0, spread_m=0.5, airborne=True), on `device`
+    (the CUDA device unless told otherwise).  With `lanes`, only those
+    quads, and draws holds their part of the 10 scan ticks' draws on the
+    start state's generator (the whole swarm's run draws them itself:
+    draws is None)."""
+    from micro_quad_slam_tpu_torch.models.simulator import (
+        fork_generator, make_world, scan_draws, select_lanes, sim_init)
+
+    B = SWARM_B
+    st = sim_init(B, 0, spread_m=0.5, airborne=True, device=device)
+    world = make_world(B, **SWARM_WORLD, device=st.x.device)
+    if lanes is None:
+        return world, st, None
+    gen = fork_generator(st.gen)
+    n_scans = SWARM_T * SWARM_RUN["dt_ms"] // SWARM_RUN["scan_period_ms"]
+    draws = [tuple(d[list(lanes)] for d in scan_draws(gen, B))
+             for _ in range(n_scans)]
+    return select_lanes(world, lanes), select_lanes(st, lanes), draws
+
+
+def int32_total(sums) -> int:
+    """The int32 (wrapping) total of per-quad sums: bench.py's checksum."""
+    return (int(np.sum(np.asarray(sums, np.int64))) + 2 ** 31) % 2 ** 32 \
+        - 2 ** 31
+
+
+def swarm_bench_result(device=None) -> dict:
+    """swarm_bench_ref's content, computed now by the port on `device`:
+    the whole bench swarm's run (B=1024, T=1000) and its grids' checksum
+    and per-quad sums.  On the CPU it takes minutes and ~1 GB."""
+    from micro_quad_slam_tpu_torch.models.simulator import sim_run
+    from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
+
+    world, st, _ = swarm_bench(device=device)
+    fin, _ = sim_run(st, world, SWARM_T, UL_PROFILE, **SWARM_RUN)
+    sums = grid_sums(fin.mapper.grid.cpu().numpy())["sums"]
+    return {"checksum": np.int64(int32_total(sums)), "sums": sums}

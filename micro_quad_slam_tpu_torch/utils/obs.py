@@ -1,9 +1,15 @@
-"""Map-quality measures of the port (counterpart of
+"""Map-quality measures and state names of the port (counterpart of
 micro_quad_slam_tpu/utils/obs.py; numpy only)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+# the UL behaviour machine's state names (uav_local_nav.c:484-496)
+STATE_NAMES_UL = (
+    "WAIT_LINK", "IDLE", "ARMING", "TAKEOFF", "LIFTOFF_ASSIST",
+    "HOVER", "EXPLORE", "TURNING", "LANDING", "DISARMING",
+)
 
 
 def map_iou_vs_walls(grid, origin_x: float, origin_y: float, room,

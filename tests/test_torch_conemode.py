@@ -220,12 +220,16 @@ def _cone(padded, beams, yaw=0.0, x=0.0, enabled=True):
                                torch.tensor([enabled]), CFG, TOF)
 
 
+def _grid():
+    return tr.new_padded_grid(batch=(1,), device="cpu")
+
+
 def _logical(padded):
     return tr.logical_grid(padded[0]).numpy()
 
 
 def test_cone_marks_walls_and_carves_free():
-    g = _logical(_cone(tr.new_padded_grid(batch=(1,)), _room_beams()))
+    g = _logical(_cone(_grid(), _room_beams()))
     occ, free = np.argwhere(g > 0), np.argwhere(g < 0)
     assert len(occ) > 30 and len(free) > 800
     d = np.abs(occ - 250).max(axis=1)
@@ -235,34 +239,34 @@ def test_cone_marks_walls_and_carves_free():
 
 def test_cone_denser_than_bresenham():
     beams = _room_beams(room=(-3.5, -3.5, 3.5, 3.5))
-    cone_g = _logical(_cone(tr.new_padded_grid(batch=(1,)), beams))
+    cone_g = _logical(_cone(_grid(), beams))
     z = torch.zeros(1, dtype=torch.float32)
-    bres = tr.apply_scan_to_grid(tr.new_padded_grid(batch=(1,)), beams, z, z,
+    bres = tr.apply_scan_to_grid(_grid(), beams, z, z,
                                  z, z, z, torch.tensor([True]), CFG, TOF)
     assert (cone_g != 0).sum() > 2.5 * (_logical(bres) != 0).sum()
 
 
 def test_cone_respects_gating_and_pose_bounds():
     beams = _room_beams()
-    assert not _logical(_cone(tr.new_padded_grid(batch=(1,)), beams,
+    assert not _logical(_cone(_grid(), beams,
                               enabled=False)).any()
-    assert not _logical(_cone(tr.new_padded_grid(batch=(1,)), beams,
+    assert not _logical(_cone(_grid(), beams,
                               x=60.0)).any()
 
 
 def test_cone_yaw_rotates_the_fans():
     beams = torch.full((1, 4, 8), float("nan"))
     beams[0, 0] = 1.5
-    occ0 = np.argwhere(_logical(_cone(tr.new_padded_grid(batch=(1,)),
+    occ0 = np.argwhere(_logical(_cone(_grid(),
                                       beams)) > 0)
-    occ90 = np.argwhere(_logical(_cone(tr.new_padded_grid(batch=(1,)), beams,
+    occ90 = np.argwhere(_logical(_cone(_grid(), beams,
                                        yaw=90.0)) > 0)
     assert (occ0[:, 1] > 250).all() and (occ90[:, 0] > 250).all()
 
 
 def test_cone_accumulates_and_clamps():
     beams = _room_beams()
-    padded = tr.new_padded_grid(batch=(1,))
+    padded = _grid()
     for _ in range(20):
         padded = _cone(padded, beams)
     g = _logical(padded)

@@ -51,7 +51,7 @@ def _close(j, t, atol=ATOL):
 
 def test_ekf_init_equals_jax():
     j = jekf.ekf_init((3,), 1.5, -2.0, z0=0.4, yaw0=0.3)
-    t = tekf.ekf_init((3,), 1.5, -2.0, z0=0.4, yaw0=0.3)
+    t = tekf.ekf_init((3,), 1.5, -2.0, z0=0.4, yaw0=0.3, device="cpu")
     np.testing.assert_array_equal(t.mean.numpy(), np.asarray(j.mean))
     np.testing.assert_array_equal(t.cov.numpy(), np.asarray(j.cov))
 

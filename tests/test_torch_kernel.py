@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (csrc/replay_exact.cu with its snapshot entry,
-csrc/replay_cone.cu, csrc/match_lattice.cu) against their plain torch
-versions, on the card.  Every test here needs a
+"""The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
+map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu) against
+their plain torch versions, on the card, and the simulator's card run
+against the committed JAX small swarm.  Every test here needs a
 CUDA device and skips without one.  The file imports nothing of jax or
 the JAX package (its flights are the port's committed test data), so it
 also runs where only the port is installed; from the repository root on a
@@ -160,3 +161,59 @@ def test_map_chunk_sched_kernel_equals_plain_on_the_card(cuda):
     want = rx.replay_exact_plain(g0.clone(), sched, UL_PROFILE)
     assert torch.equal(got, want)
 
+
+def test_map_step_bit_equals_plain_on_the_card(cuda):
+    """tests/test_pallas.py:421-451's case: random grids, NaN beams, a
+    disabled quad (3), poses at or over the grid edge."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B = 8
+    beams = torch.rand((B, 4, 8), generator=g) * 4.1 + 0.1
+    beams[torch.rand((B, 4, 8), generator=g) < 0.15] = float("nan")
+    x = torch.rand(B, generator=g) * 40 - 20
+    x[-2:] = torch.tensor([24.9, 25.3])
+    y = torch.rand(B, generator=g) * 40 - 20
+    yaw = torch.rand(B, generator=g) * 360 - 180
+    z = torch.zeros(B)
+    en = torch.ones(B, dtype=torch.bool)
+    en[3] = False
+    args = [a.to(cuda) for a in (beams, x, y, yaw, z, z, en)]
+    g0 = _random_grids(cuda, B)
+    before = rx.map_step.launches
+    got = rx.map_step(g0.clone(), *args, UL_PROFILE)
+    torch.cuda.synchronize()
+    assert rx.map_step.launches == before + 1
+    assert torch.equal(got, rx.map_step_plain(g0.clone(), *args, UL_PROFILE))
+    assert torch.equal(got[3], g0[3]) and not torch.equal(got, g0)
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "pallas_db"])
+def test_per_frame_pallas_routes_equal_xla_on_the_card(cuda, kernel):
+    frames = _flights(cuda)
+    before = rx.map_step.launches
+    got = port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
+    assert rx.map_step.launches == before + frames["x_m"].shape[1]
+    _assert_same(got, port.replay_mapping_batched(frames, UL_PROFILE,
+                                                  kernel="xla"))
+
+
+def test_swarm_small_equals_jax_on_the_card(cuda):
+    """The committed JAX small swarm (bench.py's swarm at B=8, T=1000):
+    states, cmd_kind, grids and frontier scores equal; poses and EKF
+    means within 1e-4, tests/test_torch_simulator.py's tolerance."""
+    from micro_quad_slam_tpu_torch.models.simulator import sim_run
+
+    world, st, draws, ref = testdata.swarm_small(cuda)
+    before = rx.map_step.launches
+    fin, diag = sim_run(st, world, testdata.SWARM_T, UL_PROFILE, record=True,
+                        draws=draws, **testdata.SWARM_RUN)
+    assert rx.map_step.launches == before + 10
+    assert torch.equal(diag["state"].cpu(), torch.from_numpy(ref["state"]))
+    assert torch.equal(diag["cmd_kind"].cpu(),
+                       torch.from_numpy(ref["cmd_kind"]))
+    assert torch.equal(fin.mapper.grid.cpu(), torch.from_numpy(ref["grid"]))
+    assert torch.equal(fin.frontier.cpu(), torch.from_numpy(ref["frontier"]))
+    for k in ("x", "y", "yaw"):
+        assert float((getattr(fin, k).cpu() - torch.from_numpy(ref[k]))
+                     .abs().max()) <= 1e-4, k
+    assert float((fin.ekf.mean.cpu() - torch.from_numpy(ref["ekf_mean"]))
+                 .abs().max()) <= 1e-4

@@ -89,7 +89,8 @@ def test_port_imports_and_replays_without_jax(tmp_path):
     """In a fresh interpreter (this process already holds jax: conftest
     imports it), the port imports and replays committed flights on the
     CPU in the exact and the hybrid whole-replay modes, runs the EKF and
-    SLAM replays, and imports neither jax nor the JAX package."""
+    SLAM replays and a few simulator ticks with vision flow, and imports
+    neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         import micro_quad_slam_tpu_torch as port
@@ -111,6 +112,11 @@ def test_port_imports_and_replays_without_jax(tmp_path):
         res = slam_replay(s, port.UL_RT_PROFILE, kf_every=8, gn_iters=2)
         assert res.track.shape == (1, 24, 3) and track["x"].shape == (1, 24)
         assert int(res.grid.ne(0).sum()) > 100
+        from micro_quad_slam_tpu_torch.models import simulator as sim
+        w = sim.make_world(2, device="cpu")
+        st = sim.sim_init(2, airborne=True, device="cpu")
+        st, _ = sim.sim_run(st, w, 10, port.UL_PROFILE, vision_flow=True)
+        assert st.scan_count == 2 and int(st.mapper.grid.ne(0).sum()) > 50
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "micro_quad_slam_tpu"))
         assert not loaded, loaded
@@ -129,18 +135,31 @@ def _np_frames():
 
 
 @pytest.mark.parametrize("entry", ["frames_to_torch", "mapping_init",
-                                   "mapping_state_from_numpy"])
+                                   "mapping_state_from_numpy", "ekf_init",
+                                   "new_padded_grid", "make_world",
+                                   "sim_init"])
 def test_entry_points_ask_for_cuda_by_default(entry):
     """Without a device argument the port's tensors go to the CUDA
     device; without one they raise instead of landing on the CPU."""
+    from micro_quad_slam_tpu_torch.models import simulator as sim
+    from micro_quad_slam_tpu_torch.ops import ekf
+
     call = {"frames_to_torch": lambda: port.frames_to_torch(_np_frames()),
             "mapping_init": lambda: port.mapping_init(2),
             "mapping_state_from_numpy": lambda: port.mapping_state_from_numpy(
-                port.mapping_state_to_numpy(port.mapping_init(2, device="cpu")))
+                port.mapping_state_to_numpy(port.mapping_init(2, device="cpu"))),
+            "ekf_init": lambda: ekf.ekf_init((2,)),
+            "new_padded_grid": lambda: tr.new_padded_grid(batch=(2,)),
+            "make_world": lambda: sim.make_world(2),
+            "sim_init": lambda: sim.sim_init(2, airborne=True),
             }[entry]
     if torch.cuda.is_available():
         out = call()
-        t = out["x_m"] if isinstance(out, dict) else out.grid
+        t = {"frames_to_torch": lambda o: o["x_m"],
+             "ekf_init": lambda o: o.mean, "new_padded_grid": lambda o: o,
+             "make_world": lambda o: o.room,
+             "sim_init": lambda o: o.mapper.grid}.get(entry,
+                                                      lambda o: o.grid)(out)
         assert t.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -265,6 +284,9 @@ def test_cone_kernel_checks_operands_and_devices():
 @pytest.mark.parametrize("kernel", ["resident", "pallas", "pallas_db", "mxu",
                                     "mxu2"])
 def test_exact_kernel_aliases_run_the_exact_replay(kernel):
+    """Every exact kernel name gives the per-frame plain path's grids: the
+    whole-replay names through replay_exact, "pallas" and "pallas_db"
+    frame by frame through map_step (their plain versions on the CPU)."""
     frames = _frames(n_frames=4, seed=2)
     want, _ = port.replay_mapping_batched(frames, UL_PROFILE, kernel="xla")
     got, _ = port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)

@@ -1,6 +1,7 @@
-"""PyTorch port, ops/raycast.py: ray projection, the exact window update
-and recentering, held bit-equal to the JAX package on the same seeded
-numpy inputs (integer and int8 outputs: tolerance 0)."""
+"""PyTorch port, ops/raycast.py: ray projection, the exact window update,
+recentering and the frontier queries, and ops/residentx.py's map step
+with the per-frame "pallas" routes, held bit-equal to the JAX package on
+the same seeded numpy inputs (integer and int8 outputs: tolerance 0)."""
 
 import numpy as np
 import pytest
@@ -151,8 +152,141 @@ def test_recenter_apply_matches_jax():
 
 
 def test_logical_and_new_padded_grid():
-    g = tr.new_padded_grid(GEOM, (2,))
+    g = tr.new_padded_grid(GEOM, (2,), "cpu")
     assert g.shape == (2, GEOM.prows, GEOM.pcols) and g.dtype == torch.int8
     assert tr.logical_grid(g).shape == (2, 500, 500)
     assert tr.GridGeom.from_map(CFG) == GEOM
     assert TofConfig().max_range_m / CFG.res_m < GEOM.win_r
+
+
+def _frontier_case(seed, B=12):
+    """Random grids holding unknown, free and occupied cells; poses across
+    the grid and within 2 m of its edge (rays leave it), origins off zero,
+    two quads not inited."""
+    rng = np.random.default_rng(seed)
+    g = np.zeros((B, GEOM.prows, GEOM.pcols), np.int8)
+    g[:, GEOM.pad:GEOM.pad + 500, GEOM.pad:GEOM.pad + 500] = rng.choice(
+        np.array([-40, -11, -10, -1, 0, 1, 2, 10, 11, 60], np.int8),
+        size=(B, 500, 500))
+    ox = rng.uniform(-3, 3, B).astype(np.float32)
+    oy = rng.uniform(-3, 3, B).astype(np.float32)
+    x = ox + rng.uniform(-20, 20, B).astype(np.float32)
+    y = oy + rng.uniform(-20, 20, B).astype(np.float32)
+    x[:4] = ox[:4] + np.float32(24.0) * np.float32([1, -1, 1, -1])
+    y[2:6] = oy[2:6] + np.float32([-23.5, 24.5, 23.9, -24.8])
+    yaw = rng.uniform(-180, 180, B).astype(np.float32)
+    inited = np.ones(B, bool)
+    inited[[1, 7]] = False
+    return g, x, y, yaw, ox, oy, inited
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_frontier_scores_match_jax(seed):
+    g, x, y, yaw, ox, oy, inited = _frontier_case(seed)
+    offs = (0.0, 90.0, -90.0, 180.0)
+    want = jax.jit(jax.vmap(lambda *a: jr.frontier_scores(
+        a[0], a[1], a[2], a[3], offs, a[4], a[5], a[6], JCFG)))(
+        g, x, y, yaw, ox, oy, inited)
+    got = tr.frontier_scores(T_(g), T_(x), T_(y), T_(yaw), offs, T_(ox),
+                             T_(oy), T_(inited), CFG)
+    assert got.dtype == torch.int32 and got.shape == (len(x), 4)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[[1, 7]] == 0).all() and (got != 0).sum() > 30
+    np.testing.assert_array_equal(tr._frontier_step_dists(CFG),
+                                  jr._frontier_step_dists(JCFG))
+
+
+def test_recenter_grid_matches_jax():
+    rng = np.random.default_rng(8)
+    B = 4
+    g = np.zeros((B, GEOM.prows, GEOM.pcols), np.int8)
+    g[:, GEOM.pad:GEOM.pad + 500, GEOM.pad:GEOM.pad + 500] = rng.integers(
+        -80, 81, (B, 500, 500)).astype(np.int8)
+    ox = np.float32([0.0, 1.5, -2.0, 0.3])
+    oy = np.float32([0.0, -0.5, 3.0, 0.1])
+    x = ox + np.float32([20.0, -19.0, 3.0, 31.0])
+    y = oy + np.float32([2.0, 18.0, -25.0, 0.0])
+    ok = np.array([True, True, True, False])
+    want = jax.vmap(lambda *a: jr.recenter_grid(*a, JCFG))(
+        g, ox, oy, x, y, ok)
+    got = tr.recenter_grid(T_(g), T_(ox), T_(oy), T_(x), T_(y), T_(ok), CFG)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got[3].tolist() == [True, True, True, False]
+
+
+def _map_step_case():
+    """tests/test_pallas.py:421-451's inputs: random grids in [-80, 80],
+    beams up to 4.2 m with 15% NaN, the last two poses over the grid edge,
+    quad 3 disabled."""
+    rng = np.random.default_rng(3)
+    B = 8
+    grids = rng.integers(-80, 81, (B, GEOM.prows, GEOM.pcols)).astype(np.int8)
+    beams = rng.uniform(0.1, 4.2, (B, 4, 8)).astype(np.float32)
+    beams[rng.random((B, 4, 8)) < 0.15] = np.nan
+    x = rng.uniform(-20, 20, B).astype(np.float32)
+    y = rng.uniform(-20, 20, B).astype(np.float32)
+    x[-2:] = rng.uniform(24.0, 26.0, 2)
+    yaw = rng.uniform(-180, 180, B).astype(np.float32)
+    z = np.zeros(B, np.float32)
+    en = np.ones(B, bool)
+    en[3] = False
+    return grids, [beams, x, y, yaw, z, z, en]
+
+
+def test_map_step_plain_matches_pallas_map_step_and_xla():
+    """map_step_plain (and map_step, which takes it for CPU tensors) ==
+    the JAX package's pallas_map_step in interpret mode == its vmapped
+    apply_scan_to_grid, on the TPU kernel's own test inputs."""
+    from micro_quad_slam_tpu.ops.pallas_residentx import pallas_map_step
+    from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
+    from micro_quad_slam_tpu_torch.ops import residentx as rx
+    from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
+
+    grids, args = _map_step_case()
+    want = np.asarray(jax.jit(lambda *a: pallas_map_step(
+        *a, JAX_UL, jr.DEFAULT_GEOM, interpret=True))(grids, *args))
+    xla = np.asarray(jax.jit(jax.vmap(lambda g, b, x, y, w, ox, oy, e:
+                                      jr.apply_scan_to_grid(
+                                          g, b, x, y, w, ox, oy, e, JCFG)))(
+        grids, *args))
+    np.testing.assert_array_equal(want, xla)
+    targs = [T_(a) for a in args]
+    got = rx.map_step_plain(T_(grids.copy()), *targs, UL_PROFILE)
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = rx.map_step.launches
+    np.testing.assert_array_equal(
+        rx.map_step(T_(grids.copy()), *targs, UL_PROFILE).numpy(), want)
+    assert rx.map_step.launches == before          # the CPU path launches none
+    np.testing.assert_array_equal(want[3], grids[3])        # disabled
+    np.testing.assert_array_equal(want[-2:], grids[-2:])    # over the edge
+    assert (want != grids).sum() > 500
+    meta = torch.zeros((8, GEOM.prows, GEOM.pcols), dtype=torch.int8,
+                       device="meta")
+    with pytest.raises(ValueError, match="no map step kernel"):
+        rx.map_step(meta, *[a.to("meta") for a in targs], UL_PROFILE)
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "pallas_db"])
+def test_mapping_step_pallas_routes_equal_xla(kernel):
+    """mapping_step with the JAX package's per-frame kernel names goes
+    through map_step (its plain version on the CPU) and equals "xla" step
+    by step, recenters and gated frames included."""
+    import micro_quad_slam_tpu_torch as port
+    from micro_quad_slam_tpu_torch import testdata
+    from micro_quad_slam_tpu_torch.replay.mapping import mapping_step
+
+    f, _ = testdata.load("random_flights")
+    frames = port.frames_to_torch({k: v[:3, :40] for k, v in f.items()},
+                                  "cpu")
+    sa = sb = port.mapping_init(3, device="cpu")
+    recentered = 0
+    for t in range(40):
+        fr = {k: v[:, t] for k, v in frames.items()}
+        sa, oa = mapping_step(sa, fr, kernel=kernel)
+        sb, ob = mapping_step(sb, fr, kernel="xla")
+        for x, y in zip(sa, sb):
+            assert torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0))
+        assert all(torch.equal(oa[k], ob[k]) for k in oa)
+        recentered += int(oa["kf_flags"].ne(0).sum())
+    assert recentered >= 1 and int(sa.grid.ne(0).sum()) > 1000

@@ -11,7 +11,10 @@ This file is also the generator of that data.  From the repository root:
 
 rewrites every file, or the named ones (the B=1024 hybrid bench sums run
 on the CPU in chunks of 64 flights; the SLAM references compile the JAX
-package's SLAM pipeline once per profile and stage, several minutes).
+package's SLAM pipeline once per profile and stage, several minutes;
+swarm_bench_ref is the port's own CPU run of the whole B=1024 bench
+swarm, minutes and ~1 GB: testdata.swarm_bench_result("cpu") computes it
+without JAX, on any machine with torch).
 """
 
 import dataclasses
@@ -219,6 +222,79 @@ def slam_stages() -> dict:
     return out
 
 
+def jax_scan_draws(key, n_steps: int, dt_ms: int, scan_period_ms: int,
+                   B: int) -> list:
+    """The JAX simulator's scan-tick draws for a run from a state holding
+    `key`: models/simulator.py::sim_step splits the key every tick
+    (key, k_scan) and, on a scan tick, k_scan into (k1, k2) for the
+    standard normal and the uniform draws [B, 4, 8, 8].  Returns one
+    (normal, uniform) pair of numpy arrays per scan tick."""
+    import jax.numpy as jnp
+
+    draws, t = [], 0
+    for _ in range(n_steps):
+        key, k_scan = jax.random.split(key)
+        t += dt_ms
+        if t % scan_period_ms == 0:
+            k1, k2 = jax.random.split(k_scan)
+            shape = (B, 4, 8, 8)
+            draws.append((np.asarray(jax.random.normal(k1, shape,
+                                                       jnp.float32)),
+                          np.asarray(jax.random.uniform(k2, shape))))
+    return draws
+
+
+def flatten_state(tree, prefix: str = "") -> dict:
+    """A JAX simulator state (nested NamedTuples) -> {"a.b": numpy array},
+    without the key."""
+    out = {}
+    for k, v in tree._asdict().items():
+        if k == "key":
+            continue
+        if hasattr(v, "_asdict"):
+            out.update(flatten_state(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def swarm_small_start():
+    """bench.py's swarm start (bench.py:57) at B=8, with its world."""
+    from micro_quad_slam_tpu.models.simulator import make_world, sim_init
+
+    W = testdata.SWARM_WORLD
+    return (sim_init(8, jax.random.PRNGKey(0), spread_m=0.5, airborne=True),
+            make_world(8, room=W["room"], obstacles=list(W["obstacles"])))
+
+
+def swarm_small_jax() -> dict:
+    from micro_quad_slam_tpu.models.simulator import sim_run
+
+    st, world = swarm_small_start()
+    run = testdata.SWARM_RUN
+    fin, diag = sim_run(st, world, testdata.SWARM_T, JAX_UL,
+                        dt_ms=run["dt_ms"],
+                        scan_period_ms=run["scan_period_ms"], record=True)
+    draws = jax_scan_draws(st.key, testdata.SWARM_T, run["dt_ms"],
+                           run["scan_period_ms"], 8)
+    return {**{f"start.{k}": v for k, v in flatten_state(st).items()},
+            "normal": np.stack([n for n, _ in draws]),
+            "uniform": np.stack([u for _, u in draws]),
+            "state": np.asarray(diag["state"]),
+            "cmd_kind": np.asarray(diag["cmd_kind"]),
+            "grid": np.asarray(fin.mapper.grid),
+            "frontier": np.asarray(fin.frontier),
+            "scan_count": np.asarray(fin.scan_count),
+            "x": np.asarray(fin.x), "y": np.asarray(fin.y),
+            "yaw": np.asarray(fin.yaw),
+            "ekf_mean": np.asarray(fin.ekf.mean)}
+
+
+def swarm_bench_ref() -> dict:
+    """The port's own CPU run of the whole bench swarm (minutes, ~1 GB)."""
+    return testdata.swarm_bench_result("cpu")
+
+
 def build(name: str) -> dict:
     if name not in testdata.NAMES + testdata.REFERENCES:
         raise ValueError(f"unknown test data {name!r}")
@@ -347,11 +423,56 @@ def test_slam_stage_inputs_and_odometry_equal_jax_now():
         np.testing.assert_array_equal(ref[k], v, err_msg=k)
 
 
+def test_swarm_small_start_and_draws_equal_jax_now():
+    """The stored JAX start state and scan draws against the JAX package
+    now (its run's results are re-derived by the slow test below)."""
+    ref = testdata.reference("swarm_small_jax")
+    st, _ = swarm_small_start()
+    for k, v in flatten_state(st).items():
+        assert ref[f"start.{k}"].dtype == v.dtype, k
+        np.testing.assert_array_equal(ref[f"start.{k}"], v, err_msg=k)
+    run = testdata.SWARM_RUN
+    draws = jax_scan_draws(st.key, testdata.SWARM_T, run["dt_ms"],
+                           run["scan_period_ms"], 8)
+    assert len(draws) == 10
+    np.testing.assert_array_equal(ref["normal"], np.stack([n for n, _ in draws]))
+    np.testing.assert_array_equal(ref["uniform"],
+                                  np.stack([u for _, u in draws]))
+
+
+@pytest.mark.parametrize("lanes", [[0, 511, 1023]])
+def test_swarm_bench_ref_equals_the_port_now(lanes):
+    """Three quads of the bench swarm, run by the port on the CPU with
+    their part of the swarm's draws (quads are independent), give the
+    stored per-quad sums; the stored checksum is their int32 total."""
+    from micro_quad_slam_tpu_torch.models.simulator import sim_run
+
+    ref = testdata.reference("swarm_bench_ref")
+    assert ref["sums"].shape == (testdata.SWARM_B,)
+    assert int(ref["checksum"]) == testdata.int32_total(ref["sums"])
+    world, st, draws = testdata.swarm_bench(lanes, device="cpu")
+    fin, _ = sim_run(st, world, testdata.SWARM_T, port.UL_PROFILE,
+                     draws=draws, **testdata.SWARM_RUN)
+    got = testdata.grid_sums(fin.mapper.grid.numpy())["sums"]
+    np.testing.assert_array_equal(got, ref["sums"][lanes])
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("name", ["slam_stages", "slam_bench_ref"])
 def test_slam_references_equal_jax_now(name):
     want = build(name)
     got = testdata.reference(name)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.slow
+def test_swarm_small_jax_equals_jax_now():
+    """The whole stored JAX small swarm, its run included (a JAX sim_run
+    compile of T=1000 ticks)."""
+    want = build("swarm_small_jax")
+    got = testdata.reference("swarm_small_jax")
     assert set(got) == set(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
