@@ -15,18 +15,24 @@ failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. the sm_90a build of the three sources, one nvcc per source started
-     together, with their seconds;
+     together, with their seconds and each kernel's registers, shared
+     memory, spills (-Xptxas=-v), blocks per SM (the occupancy
+     calculator) and SASS opcode counts (cuobjdump);
   3. exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
-     endpoint, a recenter inside a run of gated frames and short beams;
+     endpoint, a recenter inside a run of gated frames, short beams, and
+     the resident-tile flights (testdata.tile_flights: a tile reload on
+     every frame; recenters right after reloads);
      then the same for the cone kernel in both modes (conex == cone,
      hybridx == hybrid), and hybridx == the JAX package's hybrid grids
      of the random flights; then the lattice kernel == its plain version
      at the SLAM path's two slab shapes and match counts, and the
-     snapshot and scheduled-chunk entries == theirs, with recenters; then
+     snapshot and scheduled-chunk entries == theirs, with recenters and
+     with every snapshot chunk starting right after a tile reload; then
      the map-step entry == its plain version at B=1024 (random grids,
-     NaN beams, a disabled quad, poses at the grid edge; a saturating
-     endpoint; the short beams), and mapping_step(kernel="pallas" and
+     NaN beams, a disabled quad, poses at the grid edge; rays that end on
+     the grid's edge; a saturating endpoint; the short beams), and
+     mapping_step(kernel="pallas" and
      "pallas_db"), one map-step launch per frame, == kernel="xla";
   4. exact kernel == the golden C model on a hover, a recentering flight
      and very short beams;
@@ -41,7 +47,9 @@ failure; nothing falls back to the CPU.  Phases:
      seconds, the device's busy time in one profiled replay
      (torch.profiler) and its idle share of the best end-to-end time, and
      each kernel's own time against its plain version and its bound; the
-     cone kernel is also timed in cone mode); the SLAM bench, UL_PROFILE at
+     cone kernel is also timed in cone mode, and in hybrid mode on the
+     SLAM bench flights, whose hits need the column search); the SLAM
+     bench, UL_PROFILE at
      B=128 and UL_RT_PROFILE at B=256, T=256 (frames/s, checksum, per-stage
      seconds, launches, device busy and idle share, and the lattice kernel
      and snapshot entry alone against their plain versions and bounds);
@@ -68,10 +76,14 @@ CUDA device, or outside the repository.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,6 +91,7 @@ import torch
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.ops import _build
+from micro_quad_slam_tpu_torch.ops import conemode
 from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
@@ -141,20 +154,47 @@ WRAPPERS = {"replay_exact": rx.replay_exact, "replay_cone": cx.replay_cone,
 HBM_BYTES_PER_S = 3.35e12
 DISPATCH_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = 67e12 / 4
-# (float, int32) operations per classified cell, counted from
-# replay_cone.cu's cone_delta and the clip.  Float: the cell vector (2
-# adds), the quadrant tests (4 products, 4 compares), the rotation into
-# the quadrant (4 selects), the column search (4 x (2 products +
-# compare)), the sector's return (compare), the squared radius (3), the
-# free carve (sub, max, mul, square, 3 compares) and the delta's select
-# = 38; cone mode adds the occupied band (sub, max, mul, add, mul, 2
-# squares, 3 compares, select) = 49.  Int32: the sector index (4) and
-# the clip (add, min, max) = 7.
-CONE_CELL_OPS = {False: (49, 7), True: (38, 7)}
-# int32 operations per cell of an exact ray (replay_exact.cu): the minor
-# offset (2 products, add, divide), two selects, two signs, the address
-# (2), the endpoint select, and the clip (add, min, max) = 14
-EXACT_CELL_OPS = (0, 14)
+# (float, int32) operations of replay_cone.cu, counted from its source by
+# class of window cell; the products come from per-frame tables.  A lower
+# bound: only the arithmetic, compares and selects the classification
+# needs, not the addresses, table loads and sign flips around them.
+#   beyond reach (and off the grid, and every cell of a frame that is not
+#     enabled): the squared range's add and its compare against the
+#     frame's reach = (2, 0);
+#   in reach but outside every fan: + the 4 quadrant compares and the
+#     fan-end compare; the 4 selects of the quadrant frame's tables and
+#     signs = (7, 4);
+#   fully classified: + the free carve's 3 compares; the sector index (4)
+#     and the delta's 2 selects = (10, 10); cone mode adds the occupied
+#     band's 2 compares = (12, 10); and one compare per column test, of
+#     which a fan needs 0 to 3 (CONE_COLUMN_TEST_OPS; 0 where the fan's 8
+#     sectors hold the same thresholds, as where every beam misses).
+# Per grid word of 4 cells: the clip (saturating add, max, min) and the
+# compare for the store = (0, 4).  Per frame, the tables: 96 rows and 136
+# columns of (an add, 18 products, a square), and 32 sectors of 16 = 5152
+# float.
+CONE_CLASS_OPS = {"beyond_reach": (2, 0), "outside_fans": (7, 4),
+                  "classified": {False: (12, 10), True: (10, 10)}}
+CONE_COLUMN_TEST_OPS = (1, 0)
+CONE_WORD_OPS = (0, 4)
+CONE_FRAME_OPS = (5152, 0)
+# int32 operations per cell of an exact ray (replay_exact.cu's walk): the
+# step test, the numerator, the multiply-high for the minor offset, the
+# offset (2), the endpoint test and select, and the clip (add, min, max)
+# = 10; per valid ray, its lane's walk parameters once a frame (the major
+# axis test, 4 selects of lengths and signs, 2 of the strides, the magic
+# number's division, 2*dmin) = 10
+EXACT_CELL_OPS = (0, 10)
+EXACT_RAY_OPS = 10
+# the first designs' counts, before the cone kernel's early exits and the
+# exact kernel's multiply-high: every in-grid window cell of an enabled
+# frame fully classified, (38 | 49 float, 7 int32); 14 int32 a ray cell
+FIRST_CONE_CELL_OPS = {False: (49, 7), True: (38, 7)}
+FIRST_EXACT_CELL_OPS = (0, 14)
+# csrc/replay_exact.cu's resident tile: kTile, and how far left of the
+# pose its column starts (kMaxReach)
+EXACT_TILE = 128
+EXACT_TILE_LEFT = 56
 # int32 operations per lattice lookup (match_lattice.cu): the four bound
 # compares, the slab address (multiply, add) and the accumulate = 7
 MATCH_LOOKUP_OPS = 7
@@ -265,33 +305,126 @@ def phase_card() -> str:
     return smi
 
 
+def _ptxas_resources(log: str) -> list:
+    """Each compiled kernel's registers, shared memory and spills, from
+    nvcc -Xptxas -v: [{function, registers, smem_bytes, spill_stores,
+    spill_loads}], the function named by its kernel and template flag."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)(?:ILb([01])E)?", m.group(1))
+            flag = {"0": "<false>", "1": "<true>", None: ""}[k.group(2)]
+            cur = {"function": k.group(1) + flag}
+            out.append(cur)
+        elif cur is not None:
+            for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+    return out
+
+
+def _sass_counts(path) -> dict:
+    """{function: {"instructions": n, opcode: n for the most used}} of a
+    built library, from cuobjdump -sass (static counts; None where the
+    toolkit has no cuobjdump)."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    out, ops = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)(?:ILb([01])E)?", m.group(1))
+            flag = {"0": "<false>", "1": "<true>", None: ""}[k.group(2)]
+            ops = out.setdefault(k.group(1) + flag, {})
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
+        if m and ops is not None:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return {f: {"instructions": sum(c.values()),
+                **dict(sorted(c.items(), key=lambda kv: -kv[1])[:8])}
+            for f, c in out.items()}
+
+
+# the redesigned kernels' occupancy queries: source -> (C entry, {function:
+# its argument})
+OCCUPANCY = {
+    "replay_exact": ("mqs_replay_exact_blocks_per_sm",
+                     {"replay_exact_kernel<false>": 0,
+                      "replay_exact_kernel<true>": 1, "map_step_kernel": 2}),
+    "replay_cone": ("mqs_replay_cone_blocks_per_sm",
+                    {"replay_cone_kernel<false>": 0,
+                     "replay_cone_kernel<true>": 1})}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build_all(list(SOURCES))
     wall = time.perf_counter() - t0
     for name, info in built.items():
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+        res = _ptxas_resources(info["log"])
+        if name in OCCUPANCY:
+            entry, arg = OCCUPANCY[name]
+            fn = getattr(_build.load_library(name), entry)
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+            for r in res:
+                n = ctypes.c_int(0)
+                check(fn(arg[r["function"]], ctypes.byref(n)) == 0,
+                      f"occupancy query of {r['function']}")
+                r["blocks_per_sm"] = n.value
         say("build", kernel=name, target="sm_90a",
             flags=" ".join(_build.NVCC_FLAGS), seconds=info["seconds"],
-            ptxas=ptxas)
+            resources=res, sass=_sass_counts(info["path"]))
     say("build_all", kernels=list(built), wall_seconds=wall)
 
 
 def _cases() -> dict:
+    """The replay kernels' card cases; the last two
+    (testdata.tile_flights) drive the exact kernel's resident tile: a
+    reload on every frame, and recenters right after reloads."""
     return {"random_recenter": random_flights(),
             "saturating_endpoint": saturating_endpoint(),
             "recenter_in_gated_run": recenter_in_gated_run(),
-            "short_beams": short_beams()}
+            "short_beams": short_beams(), **testdata.tile_flights()}
+
+
+def _check_tile_case(name: str, sched) -> int:
+    """The tile cases reach the paths they are for: every frame with rays
+    loads the tile (tile_every_frame), every recenter comes right after a
+    load (recenter_after_reload).  Returns the tile loads."""
+    loads = _tile_loads(sched)
+    live = sched[..., rx.H_ANY] != 0
+    if name == "tile_every_frame":
+        check(bool(live.any()) and torch.equal(loads, live),
+              f"{name}: not every frame reloads the tile")
+    if name == "recenter_after_reload":
+        do = sched[..., rx.H_DO] != 0
+        check(bool(do[:, 1:].any()), f"{name}: no recenter")
+        check(bool(loads[:, :-1][do[:, 1:]].all()),
+              f"{name}: a recenter not right after a reload")
+    return int(loads.sum())
 
 
 def phase_kernel_vs_plain(device) -> None:
     before = rx.replay_exact.launches
     cases = _cases()
+    tile_loads = {}
     for name, f in cases.items():
         k = replay(f, device, "residentx")
         assert_same(k, replay(f, device, "xla"), name)
         (st, outs) = k
+        if name in testdata.tile_flights():
+            sched = rx.schedule(port.frames_to_torch(f, device),
+                                UL_PROFILE)[0]
+            tile_loads[name] = _check_tile_case(name, sched)
         if name == "random_recenter":
             check(int((outs["kf_flags"] != 0).sum()) >= 1, "no recenter")
         if name in ("saturating_endpoint", "short_beams"):
@@ -303,7 +436,7 @@ def phase_kernel_vs_plain(device) -> None:
     launches = rx.replay_exact.launches - before
     check(launches >= len(cases), f"kernel launched {launches} times")
     say("kernel_vs_plain", kernel="replay_exact", cases=list(cases),
-        bit_equal=True, launches=launches)
+        bit_equal=True, launches=launches, tile_loads=tile_loads)
 
 
 def phase_cone_kernel_vs_plain(device) -> None:
@@ -502,10 +635,11 @@ def _recentering_quads(sched) -> torch.Tensor:
 
 
 def _exact_touched(sched, slab=None) -> tuple:
-    """(distinct 32-byte grid sectors, cells) the exact kernel reads and
-    writes for this schedule: the cells of every valid ray, and the whole
-    grid of a quad that recenters; with slab = (rows, cols), also the
-    snapshot slabs (header words H_R0S, H_C0S) the snapshot entry reads."""
+    """(distinct 32-byte grid sectors, cells, valid rays) the exact kernel
+    reads and writes for this schedule: the cells of every valid ray, and
+    the whole grid of a quad that recenters; with slab = (rows, cols),
+    also the snapshot slabs (header words H_R0S, H_C0S) the snapshot entry
+    reads."""
     B, T, _ = sched.shape
     dev = sched.device
     n_sec = GEOM.prows * GEOM.pcols // 32
@@ -523,7 +657,7 @@ def _exact_touched(sched, slab=None) -> tuple:
         mark[quad.reshape(-1), sec.reshape(-1)] = True
     k = torch.arange(GEOM.win_r + 1, device=dev).view(1, 1, 1, -1)
     quad = torch.arange(B, device=dev).view(B, 1, 1, 1)
-    cells = 0
+    cells = rays = 0
     for t0 in range(0, T, 16):
         w = sched[:, t0:t0 + 16].long()
         r = w[..., rx.HDR:].reshape(B, w.shape[1], 32, rx.RAY_WORDS)
@@ -539,15 +673,53 @@ def _exact_touched(sched, slab=None) -> tuple:
         cell = ((w[..., rx.H_PCY, None, None] + v) * GEOM.pcols
                 + w[..., rx.H_PCX, None, None] + u)
         cells += int(ok.sum())
+        rays += int(valid.sum())
         mark[quad.expand_as(cell)[ok], (cell // 32)[ok]] = True
-    return int(mark.sum()), cells
+    return int(mark.sum()), cells, rays
+
+
+def _exact_int_ops(cells: int, rays: int) -> int:
+    return cells * EXACT_CELL_OPS[1] + rays * EXACT_RAY_OPS
+
+
+def _tile_loads(sched) -> torch.Tensor:
+    """bool [B, T]: the frames at which csrc/replay_exact.cu loads its
+    resident tile for this schedule, by the kernel's own rule: a frame with
+    rays whose box (its valid rays' endpoints and the pose) leaves the tile
+    it holds, or that holds none (at the start, after a recenter); the
+    tile is then placed around the pose."""
+    B, T, _ = sched.shape
+    w = sched.long()
+    r = w[..., rx.HDR:].reshape(B, T, 32, rx.RAY_WORDS)
+    valid = r[..., 3] != 0
+    ex = torch.where(valid, r[..., 0], 0)
+    ey = torch.where(valid, r[..., 1], 0)
+    pcy, pcx = w[..., rx.H_PCY], w[..., rx.H_PCX]
+    ylo, yhi = pcy + ey.amin(-1).clamp(max=0), pcy + ey.amax(-1).clamp(min=0)
+    xlo, xhi = pcx + ex.amin(-1).clamp(max=0), pcx + ex.amax(-1).clamp(min=0)
+    have = torch.zeros(B, dtype=torch.bool, device=sched.device)
+    r0 = torch.zeros(B, dtype=torch.long, device=sched.device)
+    c0 = torch.zeros_like(r0)
+    loads = []
+    for t in range(T):
+        have &= w[:, t, rx.H_DO] == 0
+        inside = (have & (ylo[:, t] >= r0) & (yhi[:, t] < r0 + EXACT_TILE)
+                  & (xlo[:, t] >= c0) & (xhi[:, t] < c0 + EXACT_TILE))
+        load = (w[:, t, rx.H_ANY] != 0) & ~inside
+        r0 = torch.where(load, (pcy[:, t] - EXACT_TILE // 2).clamp(
+            0, GEOM.prows - EXACT_TILE), r0)
+        c0 = torch.where(load, (pcx[:, t] - EXACT_TILE_LEFT).clamp(
+            0, GEOM.pcols - EXACT_TILE) // 16 * 16, c0)
+        have |= load
+        loads.append(load)
+    return torch.stack(loads, dim=1)
 
 
 def _cone_touched(sched) -> tuple:
-    """(distinct 32-byte grid sectors, classified cells) of the cone
-    kernel for this schedule: every frame reads and writes its whole
-    window, and classifies its cells inside the logical grid when it is
-    enabled; a recentering quad's whole grid is read and written."""
+    """(distinct 32-byte grid sectors, cells inside the logical grid of
+    enabled frames) of the cone kernel for this schedule: every frame
+    reads and writes its whole window; a recentering quad's whole grid is
+    read and written."""
     B, T, _ = sched.shape
     dev = sched.device
     WR, WC, n_cs = GEOM.win_rows, GEOM.win_cols, GEOM.pcols // 32
@@ -573,26 +745,122 @@ def _cone_touched(sched) -> tuple:
     return int(cover.sum()), cells
 
 
+def _fan_depths(dfree2, olo2, ohi2, hybrid: bool) -> torch.Tensor:
+    """int [N, 4]: the column tests replay_cone.cu gives each fan's cells,
+    from its 8 sectors' thresholds [N, 32]: 0 where all 8 agree, 1 where
+    each half does, 2 where each pair does, else 3."""
+    thr = torch.stack([dfree2] if hybrid else [dfree2, olo2, ohi2], -1)
+    fans = thr.view(thr.shape[0], 4, 8, -1)
+
+    def uniform(n):
+        groups = fans.view(fans.shape[0], 4, 8 // n, n, -1)
+        return (groups == groups[:, :, :, :1]).flatten(2).all(-1)
+
+    return torch.where(uniform(8), 0, torch.where(
+        uniform(4), 1, torch.where(uniform(2), 2, 3)))
+
+
+def _cone_classes(sched, hybrid: bool, chunk: int = 2048) -> dict:
+    """The cone kernel's window cells for this schedule by class
+    (CONE_CLASS_OPS), as replay_cone.cu classifies them: beyond the
+    frame's reach (or off the grid, or in a frame not enabled), in reach
+    but outside every fan, fully classified, with the column tests the
+    classified ones take; and its frames and the grid words it clips (96
+    rows of 32, or 33 when the window's corner column is not a multiple
+    of 4)."""
+    WR, WC, R = GEOM.win_rows, GEOM.win_cols, GEOM.win_r
+    m = UL_PROFILE.map
+    k = conemode.cone_constants(m.res_m, UL_PROFILE.tof, conemode.ConeConfig())
+    flat = sched.reshape(-1, sched.shape[-1])
+    dev = flat.device
+    rows = torch.arange(WR, device=dev)
+    cols = torch.arange(WC, device=dev)
+    n = dict.fromkeys(("beyond_reach", "outside_fans", "classified",
+                       "column_tests"), 0)
+    for i in range(0, flat.shape[0], chunk):
+        inp = cx._frame_inputs(flat[i:i + chunk], GEOM, hybrid)
+        ay = rows.float() + inp["oyc"][:, None]                   # [N, WR]
+        ax = cols.float() + inp["oxc"][:, None]                   # [N, WC]
+        gy = rows + (inp["pcy"] - R)[:, None]
+        gx = cols + (inp["pcx"] - R)[:, None]
+        ayy = torch.where((gy >= 0) & (gy < m.height), ay * ay, math.inf)
+        axx = torch.where((gx >= 0) & (gx < m.width), ax * ax, math.inf)
+        p = inp["packed"]
+        d = p.abs()
+        valid = d > k["skip"]
+        dfree = (d - k["free_margin"]).clamp_min(0.0) * k["inv_res"]
+        ohi = (d + k["hit_band"]) * k["inv_res"]
+        olo = (d - k["hit_band"]).clamp_min(0.0) * k["inv_res"]
+        dfree2 = torch.where(valid, dfree * dfree, 0.0)
+        ohi2 = torch.where(valid & (p > 0.0) & (not hybrid), ohi * ohi, -1.0)
+        depth = _fan_depths(dfree2, olo * olo, ohi2, hybrid)
+        reach2 = torch.where(inp["en"], torch.maximum(dfree2, ohi2).amax(1),
+                             -1.0)
+        near = axx[:, None, :] + ayy[:, :, None] <= reach2[:, None, None]
+        b = inp["bounds"]
+        on_col = lambda j: (b[:, j, None] * ax)[:, None, :]       # noqa: E731
+        on_row = lambda j: (b[:, j, None] * ay)[:, :, None]       # noqa: E731
+        pxx, pyx, pxy, pyy = on_col(0), on_col(1), on_row(0), on_row(1)
+        m0 = (pxx > -pyy) & (pxy >= pyx)
+        m1 = ~m0 & (pxy > pyx)
+        d1 = ~m0 & ~m1
+        d0 = m1 | (d1 & ~(pxx < -pyy))
+        py = torch.where(d0, on_col(16), on_row(16))
+        px = torch.where(d0, on_row(17), on_col(17))
+        out = (torch.where(d0 != d1, -py, py) > torch.where(d1, -px, px))
+        fan = (2 * d1.long() + d0.long()).flatten(1)
+        tests = depth.gather(1, fan).view(out.shape)
+        n["beyond_reach"] += int((~near).sum())
+        n["outside_fans"] += int((near & out).sum())
+        n["classified"] += int((near & ~out).sum())
+        n["column_tests"] += int(tests[near & ~out].sum())
+    words = WR * int((32 + (flat[:, cx.H_C0] % 4 != 0).long()).sum())
+    return {**n, "frames": flat.shape[0], "words": words}
+
+
+def _ops_bound(nbytes: int, f_ops: int, i_ops: int) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of nbytes over the HBM
+    rate and the operations over their dispatch rates (all of them over
+    the dispatch rate, the int32 ones alone over theirs)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max((f_ops + i_ops) / DISPATCH_OPS_PER_S, i_ops / INT32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _bound(name: str, sched, hybrid: bool = False) -> dict:
     """The least time the card could take for the kernel's work on this
     schedule: the larger of its bytes (the schedule read once, each
     touched grid sector read once and written once) over the HBM rate
-    and its operations over their dispatch rates: all of them over the
-    dispatch rate, and the int32 ones alone over theirs."""
+    and its operations, counted from the kernel's source by class of cell
+    (CONE_CLASS_OPS, EXACT_CELL_OPS), over their dispatch rates.
+    `first_count_bound_ms` is the bound by the first designs' counts
+    (every in-grid cell fully classified; 14 int32 a ray cell)."""
     if name == "replay_exact":
-        sectors, cells = _exact_touched(sched)
-        f_ops, i_ops = EXACT_CELL_OPS
+        sectors, cells, rays = _exact_touched(sched)
+        f_ops, i_ops = 0, _exact_int_ops(cells, rays)
+        first = (0, cells * FIRST_EXACT_CELL_OPS[1])
+        extra = {"cells": cells, "rays": rays,
+                 "tile_loads": int(_tile_loads(sched).sum())}
     else:
         sectors, cells = _cone_touched(sched)
-        f_ops, i_ops = CONE_CELL_OPS[hybrid]
-    ops = cells * (f_ops + i_ops)
+        cls = _cone_classes(sched, hybrid)
+        per = {**CONE_CLASS_OPS,
+               "classified": CONE_CLASS_OPS["classified"][hybrid]}
+        f_ops = sum(cls[c] * per[c][0] for c in per) + \
+            cls["column_tests"] * CONE_COLUMN_TEST_OPS[0] + \
+            cls["frames"] * CONE_FRAME_OPS[0]
+        i_ops = sum(cls[c] * per[c][1] for c in per) + \
+            cls["column_tests"] * CONE_COLUMN_TEST_OPS[1] + \
+            cls["words"] * CONE_WORD_OPS[1]
+        first = tuple(cells * o for o in FIRST_CONE_CELL_OPS[hybrid])
+        extra = {"cells_in_grid": cells, **cls}
     nbytes = sched.numel() * sched.element_size() + 2 * 32 * sectors
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(ops / DISPATCH_OPS_PER_S, cells * i_ops / INT32_OPS_PER_S)
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops, "grid_sectors": sectors,
-            "cells": cells}
+    ms, by = _ops_bound(nbytes, f_ops, i_ops)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": nbytes,
+            "bound_float_ops": f_ops, "bound_int32_ops": i_ops,
+            "first_count_bound_ms": _ops_bound(nbytes, *first)[0],
+            "grid_sectors": sectors, **extra}
 
 
 # ----------------------------------------------------------------- bench
@@ -668,6 +936,7 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     say("kernel_bound", kernel=name, mode=kernel, **bound)
     if kernel == "hybridx":
         _cone_mode_alone(frames, st_k.grid, smi)
+        _cone_on_walls(st_k.grid, smi)
     return {"name": name, "route": "cuda", **KERNELS[name],
             "launches": n_launch[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
@@ -691,17 +960,44 @@ def _cone_mode_alone(frames, like, smi: str) -> None:
         **_bound("replay_cone", sched, hybrid=False), card=smi)
 
 
+def _cone_on_walls(like, smi: str, B: int = 1024) -> None:
+    """The cone kernel in hybrid mode on the SLAM bench flights (circles in
+    a walled room, testdata.slam_bench_frames) replicated to B=1024: hits
+    at many ranges, where its fans need their column search, unlike the
+    bench hover's misses.  Time, plain time and bound."""
+    frames = testdata.slam_bench_frames(B, device=like.device)
+    sched = cx.schedule(frames, UL_PROFILE, hybrid=True)[0]
+    grids = torch.zeros_like(like)
+    fn = lambda g: cx.replay_cone(g, sched, UL_PROFILE, True)   # noqa: E731
+    fn(grids)                                                    # warm-up
+    ms = _time_kernel(grids, fn, 5)
+    plain = torch.zeros_like(grids)
+    plain_ms = _time_kernel(
+        plain, lambda g: cx.replay_cone_plain(g, sched, UL_PROFILE, True), 1)
+    err = int((grids.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    check(err == 0, f"replay_cone (walls) vs plain max abs err {err}")
+    say("kernel_cone_walls", kernel="replay_cone", mode="hybridx",
+        flights="slam_bench_frames", ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, **_bound("replay_cone", sched, hybrid=True),
+        card=smi)
+
+
 # ------------------------------------------------------------------ SLAM
 
-def _random_slots(device, K: int = 8):
+def _random_slots(device, K: int = 8, jump: bool = False):
     """The committed random flights' every 8th frame as K keyframe slots,
     with a chunk-start recenter (flight 0, slot 4) and a mid-chunk one
-    (flight 1, slot 2), on grids of random log-odds."""
+    (flight 1, slot 2), on grids of random log-odds.  With jump, the
+    slots' poses jump 4.8 m east and back, so that every slot reloads the
+    exact kernel's tile and every chunk starts right after a reload."""
     t = port.frames_to_torch(random_flights(), device)
     B = t["x_m"].shape[0]
     beams, _ = port.ops.extract_beams(t["grid_mm"], UL_PROFILE.tof)
     sel = slice(0, 8 * K, 8)
     x, y, yaw = t["x_m"][:, sel], t["y_m"][:, sel], t["yaw_deg"][:, sel]
+    if jump:
+        x = x + torch.where(torch.arange(K, device=device) % 2 == 0, -2.4,
+                            2.4)
     ox, oy = x[:, :1].expand(B, K).clone(), y[:, :1].expand(B, K).clone()
     ox, oy = ox.nan_to_num(0.0), oy.nan_to_num(0.0)
     do = torch.zeros((B, K), dtype=torch.int32, device=device)
@@ -751,6 +1047,22 @@ def phase_slam_kernels_vs_plain(device) -> None:
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
           "map_snap differs from its plain version")
     check(not torch.equal(got[1][0, 4], got[1][0, 3]), "no chunk-start roll")
+    # every chunk start right after a tile reload
+    args_j, _ = _random_slots(device, jump=True)
+    pcx, pcy = port.ops.world_to_cell(args_j[1], args_j[2], args_j[4],
+                                      args_j[5], UL_PROFILE.map.res_m, 250,
+                                      250)
+    wy0, wx0 = sm.window_origin(pcx, pcy, GEOM)
+    got = rx.map_snap(g0, *args_j, wy0, wx0, 4, UL_PROFILE)
+    want = rx.map_snap_plain(g0, *args_j, wy0, wx0, 4, UL_PROFILE)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "map_snap (a reload before every chunk start) differs from its "
+          "plain version")
+    sched = rx._snap_operands(g0, *args_j, wy0, wx0, 4, UL_PROFILE, GEOM)[1]
+    live = sched[..., rx.H_ANY] != 0
+    check(bool(live[:, 3].any())
+          and torch.equal(_tile_loads(sched), live),
+          "the jumping slots do not reload the tile at every slot")
     # a whole flight's re-raster with the exact path's own recenters
     f = port.frames_to_torch(random_flights(), device)
     beams, so, _, _ = rx.carry(f, UL_PROFILE)
@@ -763,12 +1075,14 @@ def phase_slam_kernels_vs_plain(device) -> None:
         *x, UL_PROFILE), UL_PROFILE)
     check(torch.equal(got, want), "map_chunk_sched differs from plain")
     n = {k: v - before[k] for k, v in launches().items()}
-    check(n["match_lattice"] >= 2 and n["replay_exact_snap"] >= 1
+    check(n["match_lattice"] >= 2 and n["replay_exact_snap"] >= 2
           and n["replay_exact"] >= 1, f"launches {n}")
     say("kernel_vs_plain", kernel=["match_lattice", "replay_exact_snap",
                                    "replay_exact (map_chunk_sched)"],
         match_counts=[3584, 9984], slab_shapes=[[104, 256], [96, 128]],
-        recenters=int(so["do"].sum()) + 2, bit_equal=True, launches=n)
+        recenters=int(so["do"].sum()) + 2,
+        snapshot_cases=["random_slots", "chunk_start_after_reload"],
+        bit_equal=True, launches=n)
 
 
 def _track_err(a: torch.Tensor, b: np.ndarray) -> list:
@@ -925,20 +1239,20 @@ def _slam_kernels_alone(frames, cfg, smi: str, busy: dict) -> dict:
               int((snaps_k.to(torch.int16)
                    - snaps_p.to(torch.int16)).abs().max()))
     check(err == 0, f"replay_exact_snap vs plain max abs err {err}")
-    sectors, cells = _exact_touched(sched, snaps.shape[2:])
+    sectors, cells, rays = _exact_touched(sched, snaps.shape[2:])
     nbytes = (sched.numel() * sched.element_size() + 2 * 32 * sectors
               + snaps.numel())
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = cells * EXACT_CELL_OPS[1] / INT32_OPS_PER_S
-    bound = {"bound_ms": max(t_bytes, t_ops) * 1e3,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bound_bytes": nbytes, "bound_ops": cells * EXACT_CELL_OPS[1]}
+    ms_bound, by = _ops_bound(nbytes, 0, _exact_int_ops(cells, rays))
+    bound = {"bound_ms": ms_bound, "bound_by": by, "bound_bytes": nbytes,
+             "bound_int32_ops": _exact_int_ops(cells, rays),
+             "first_count_bound_ms": _ops_bound(
+                 nbytes, 0, cells * FIRST_EXACT_CELL_OPS[1])[0]}
     say("kernel_alone", kernel="replay_exact_snap", stage="pass1",
         B=sched.shape[0], slots=sched.shape[1], ms=ms,
         ms_profiled_launches=profiled, call_ms=call_ms,
-        plain_ms=plain_ms,
-        max_abs_err=err, grid_sectors=sectors, cells=cells, **bound,
-        card=smi)
+        plain_ms=plain_ms, max_abs_err=err, grid_sectors=sectors,
+        cells=cells, rays=rays,
+        tile_loads=int(_tile_loads(sched).sum()), **bound, card=smi)
     out["replay_exact_snap"] = {"max_abs_err": err, "ms": ms,
                                 "plain_ms": plain_ms, **bound}
     return out
@@ -1095,7 +1409,8 @@ def _map_step_cases(device, B: int = 1024) -> dict:
     :421-451's case at B=1024 (random grids in [-80, 80], beams up to 4.2 m
     with 15% NaN, poses in +/-20 m with the last two at or over the grid
     edge, quad 3 disabled); a saturating endpoint (grids at 120, every
-    front beam 7 cm from the pose); the short-beam flights' 3 frames."""
+    front beam 7 cm from the pose); rays that reach the logical grid's
+    edge (testdata.edge_scans); the short-beam flights' 3 frames."""
     rng = np.random.default_rng(3)
     gen = torch.Generator(device=device).manual_seed(3)
     grids = torch.randint(-80, 81, (B, GEOM.prows, GEOM.pcols),
@@ -1122,6 +1437,10 @@ def _map_step_cases(device, B: int = 1024) -> dict:
     f = port.frames_to_torch(short_beams(), device)
     sb, _ = port.ops.extract_beams(f["grid_mm"], UL_PROFILE.tof)
     zt = torch.zeros(2, device=device)
+    eb, ex, ey, eyaw = testdata.edge_scans()
+    ze = np.zeros(len(ex), np.float32)
+    cases["grid_edge_reach"] = (grids[:len(ex)].clone(), [
+        ten(eb, ex, ey, eyaw, ze, ze, np.ones(len(ex), bool))])
     cases["short_beams"] = (
         torch.zeros((2, GEOM.prows, GEOM.pcols), dtype=torch.int8,
                     device=device),
@@ -1129,6 +1448,18 @@ def _map_step_cases(device, B: int = 1024) -> dict:
           zt, torch.ones(2, dtype=torch.bool, device=device)]
          for t in range(sb.shape[1])])
     return cases
+
+
+def _edge_endpoints(args) -> int:
+    """Valid rays of one map step (map_step's arguments) that end on the
+    logical grid's border row or column."""
+    w = rx._step_words(*args, UL_PROFILE, GEOM).long()
+    r = w[:, rx.HDR:].reshape(-1, 32, rx.RAY_WORDS)
+    y = w[:, rx.H_PCY, None] + r[..., 1] - GEOM.pad
+    x = w[:, rx.H_PCX, None] + r[..., 0] - GEOM.pad
+    edge = ((y == 0) | (y == GEOM.height - 1) | (x == 0)
+            | (x == GEOM.width - 1))
+    return int((edge & (r[..., 3] != 0)).sum())
 
 
 def phase_map_step_vs_plain(device) -> None:
@@ -1149,6 +1480,9 @@ def phase_map_step_vs_plain(device) -> None:
         check(not torch.equal(got, g0), f"map_step {name}: no cell moved")
         if name == "random_edge_disabled":
             check(torch.equal(got[3], g0[3]), "the disabled quad's grid moved")
+        elif name == "grid_edge_reach":
+            check(_edge_endpoints(frames[0]) > 0,
+                  f"map_step {name}: no ray ends on the grid's edge")
         else:
             check(int(got.max()) >= UL_PROFILE.map.lo_max - 10,
                   f"map_step {name}: no saturation")
@@ -1231,7 +1565,7 @@ def _map_step_alone(ticks) -> dict:
     plain version (max abs error, plain ms per tick by CUDA events) and
     its bound per launch: the words read once, each touched 32-byte grid
     sector read and written once, and EXACT_CELL_OPS int32 operations per
-    ray cell, averaged over the ticks."""
+    ray cell and EXACT_RAY_OPS per valid ray, averaged over the ticks."""
     err, plain, bounds, nbytes, ops = 0, [], [], 0, 0
     for g0, args in ticks:
         gk, gp = g0.clone(), g0.clone()
@@ -1242,9 +1576,9 @@ def _map_step_alone(ticks) -> dict:
         err = max(err, int((gk.to(torch.int16) - gp.to(torch.int16))
                            .abs().max()))
         words = rx._step_words(*args, UL_PROFILE, GEOM)
-        sectors, cells = _exact_touched(words[:, None])
+        sectors, cells, rays = _exact_touched(words[:, None])
         b = words.numel() * words.element_size() + 2 * 32 * sectors
-        o = cells * EXACT_CELL_OPS[1]
+        o = _exact_int_ops(cells, rays)
         bounds.append(max(b / HBM_BYTES_PER_S, o / INT32_OPS_PER_S) * 1e3)
         nbytes += b
         ops += o

@@ -58,6 +58,8 @@ W_OXC, W_OYC, W_PACKED, W_BOUNDS = 8, 9, 10, 42
 CONE_WORDS = 64
 W_EX, W_EY, W_ED = 64, 96, 128
 HYBRID_WORDS = 160
+# the window shape csrc/replay_cone.cu is compiled for (GridGeom's default)
+KERNEL_WINDOW = (96, 128)
 
 
 def words_of(hybrid: bool) -> int:
@@ -140,6 +142,9 @@ def replay_cone(grids: torch.Tensor, sched: torch.Tensor,
         return replay_cone_plain(grids, sched, cfg, hybrid, geom)
     if grids.device.type != "cuda":
         raise ValueError(f"no cone replay kernel for device {grids.device}")
+    if (geom.win_rows, geom.win_cols) != KERNEL_WINDOW:
+        raise ValueError(f"the cone kernel is built for a {KERNEL_WINDOW} "
+                         f"window, not ({geom.win_rows}, {geom.win_cols})")
     B, T = sched.shape[:2]
     if B == 0 or T == 0:
         return grids

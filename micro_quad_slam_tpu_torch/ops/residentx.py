@@ -250,7 +250,7 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
     if B == 0 or T == 0:
         return grids
     fn = _build.load_library("replay_exact").mqs_replay_exact
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     # recenter staging, one grid per quad; most replays never recenter
     # (the kernel reads it only on a recentering frame), so it costs a
@@ -264,7 +264,8 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
             grids.data_ptr(), sched.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
-            geom.height, m.lo_min, m.lo_max, m.lo_free_dec, stream)
+            geom.height, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec,
+            stream)
     if err != 0:
         raise RuntimeError(f"replay_exact kernel launch failed: CUDA error "
                            f"{err}")
@@ -308,7 +309,7 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
     if B == 0 or T == 0:
         return grids
     fn = _build.load_library("replay_exact").mqs_replay_exact_snap
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
                else None)
@@ -319,8 +320,8 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
             grids.data_ptr(), sched.data_ptr(),
             None if scratch is None else scratch.data_ptr(), snaps.data_ptr(),
             B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
-            geom.height, m.lo_min, m.lo_max, m.lo_free_dec, n_kf, rows, cols,
-            stream)
+            geom.height, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec, n_kf,
+            rows, cols, stream)
     if err != 0:
         raise RuntimeError(f"replay_exact_snap kernel launch failed: CUDA "
                            f"error {err}")
@@ -379,13 +380,14 @@ def map_step(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
     if B == 0:
         return grids
     fn = _build.load_library("replay_exact").mqs_map_step
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     m = cfg.map
     with torch.cuda.device(grids.device):
         stream = torch.cuda.current_stream(grids.device).cuda_stream
         err = fn(grids.data_ptr(), words.data_ptr(), B, WORDS, geom.prows,
-                 geom.pcols, m.lo_min, m.lo_max, m.lo_free_dec, stream)
+                 geom.pcols, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec,
+                 stream)
     if err != 0:
         raise RuntimeError(f"map_step kernel launch failed: CUDA error {err}")
     map_step.launches += 1

@@ -203,6 +203,69 @@ def swarm_bench(lanes=None, device=None):
     return select_lanes(world, lanes), select_lanes(st, lanes), draws
 
 
+def _jump_frames(x, y, seed: int) -> dict:
+    """Flights along the poses x, y [B, T] (yaw turning 37 degrees a frame),
+    every frame enabled, with seeded ToF zones: hits from 0.3 to 4.2 m and
+    a tenth of the zones without a return."""
+    rng = np.random.default_rng(seed)
+    B, T = x.shape
+    grid_mm = rng.integers(300, 4200, (B, T, 4, 8, 8)).astype(np.uint16)
+    grid_mm[rng.random(grid_mm.shape) < 0.1] = 0xFFFF
+    return {"grid_mm": grid_mm, "x_m": x.astype(np.float32),
+            "y_m": y.astype(np.float32),
+            "yaw_deg": (np.mod(37.0 * np.arange(T) + 180.0, 360.0)
+                        - 180.0).astype(np.float32)[None].repeat(B, 0),
+            "of_q": np.full((B, T), 200, np.int32),
+            "of_rate_x": np.zeros((B, T), np.float32),
+            "sys_health": np.zeros((B, T), np.int64),
+            "state": np.full((B, T), 5, np.uint8)}
+
+
+def tile_flights() -> dict:
+    """The exact kernel's resident-tile cases (csrc/replay_exact.cu keeps a
+    128 x 128 tile of the grid around the pose in shared memory and
+    reloads it when a frame's rays leave it), as flights [2, T, ...]:
+
+        tile_every_frame       the pose jumps 8 m east and back (quad 0)
+                               or 8 m in x and in y and back (quad 1)
+                               every frame, 80 cells, past the tile's
+                               reach of 71 cells from the pose, so every
+                               frame's rays leave the tile
+        recenter_after_reload  8 m a frame east (quad 0) or 6 m a frame
+                               in x and in y south-west (quad 1): every
+                               frame reloads the tile, and the map
+                               recenters every second frame or so, each
+                               time right after a reload"""
+    T = 24
+    sign = np.where(np.arange(T) % 2 == 0, -4.0, 4.0)
+    jump_x = np.stack([sign, sign])
+    jump_y = np.stack([np.zeros(T), sign])
+    T = 40
+    step = np.arange(T, dtype=np.float64)
+    line_x = np.stack([8.0 * step, -6.0 * step])
+    line_y = np.stack([np.zeros(T), -6.0 * step])
+    return {"tile_every_frame": _jump_frames(jump_x, jump_y, 21),
+            "recenter_after_reload": _jump_frames(line_x, line_y, 22)}
+
+
+def edge_scans(B: int = 64):
+    """One scan per quad with its rays reaching the logical grid's edge:
+    poses within 0.3 m of the border of the 50 x 50 m map (origin 0), yaw
+    all round, beams from 0.06 to 0.7 m (a tenth of them NaN).  Returns
+    numpy (beams [B, 4, 8], x, y, yaw [B])."""
+    rng = np.random.default_rng(23)
+    along = rng.uniform(-24.9, 24.9, B)
+    inset = rng.uniform(24.65, 24.95, B)
+    side = np.arange(B) % 4
+    x = np.where(side == 0, inset, np.where(side == 1, -inset, along))
+    y = np.where(side == 2, inset, np.where(side == 3, -inset, along))
+    beams = rng.uniform(0.06, 0.7, (B, 4, 8))
+    beams[rng.random(beams.shape) < 0.1] = np.nan
+    yaw = rng.uniform(-180, 180, B)
+    return (beams.astype(np.float32), x.astype(np.float32),
+            y.astype(np.float32), yaw.astype(np.float32))
+
+
 def int32_total(sums) -> int:
     """The int32 (wrapping) total of per-quad sums: bench.py's checksum."""
     return (int(np.sum(np.asarray(sums, np.int64))) + 2 ** 31) % 2 ** 32 \

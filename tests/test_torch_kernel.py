@@ -119,15 +119,20 @@ def test_match_kernel_bit_equals_plain_on_the_card(cuda, shape, n_yaw, T):
     assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
 
 
-def _slots(device, K=8):
+def _slots(device, K=8, jump=False):
     """4 random flights' every 8th frame as keyframe slots, with a
     chunk-start recenter (flight 0, slot 4) and a mid-chunk one (flight 1,
-    slot 2)."""
+    slot 2).  With jump, the slots' poses jump 4.8 m east and back, so
+    that every slot reloads the exact kernel's resident tile and every
+    chunk starts right after a reload."""
     t = _flights(device)
     B = t["x_m"].shape[0]
     beams, _ = extract_beams(t["grid_mm"], UL_PROFILE.tof)
     sel = slice(0, 8 * K, 8)
     x, y, yaw = t["x_m"][:, sel], t["y_m"][:, sel], t["yaw_deg"][:, sel]
+    if jump:
+        x = x + torch.where(torch.arange(K, device=device) % 2 == 0, -2.4,
+                            2.4)
     ox, oy = x[:, :1].expand(B, K).clone(), y[:, :1].expand(B, K).clone()
     do = torch.zeros((B, K), dtype=torch.int32, device=device)
     rsy, rsx = do.clone(), do.clone()
@@ -136,8 +141,8 @@ def _slots(device, K=8):
     return [beams[:, sel].contiguous(), x, y, yaw, ox, oy, do, rsy, rsx]
 
 
-def test_snapshot_entry_bit_equals_plain_on_the_card(cuda):
-    args = _slots(cuda)
+def _check_snapshot_entry(cuda, jump):
+    args = _slots(cuda, jump=jump)
     pcx, pcy = world_to_cell(args[1], args[2], args[4], args[5], 0.1, 250,
                              250)
     wy0, wx0 = window_origin(pcx, pcy, port.DEFAULT_GEOM)
@@ -149,6 +154,16 @@ def test_snapshot_entry_bit_equals_plain_on_the_card(cuda):
     want = rx.map_snap_plain(g0, *args, wy0, wx0, 4, UL_PROFILE)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not torch.equal(got[1][0, 4], got[1][0, 3])
+
+
+def test_snapshot_entry_bit_equals_plain_on_the_card(cuda):
+    _check_snapshot_entry(cuda, jump=False)
+
+
+def test_snapshot_chunks_after_tile_reloads_bit_equal_plain_on_the_card(cuda):
+    """Every slot's pose jumps, so the exact kernel reloads its tile at
+    every slot and each chunk's snapshot follows a reload."""
+    _check_snapshot_entry(cuda, jump=True)
 
 
 def test_map_chunk_sched_kernel_equals_plain_on_the_card(cuda):
@@ -184,6 +199,36 @@ def test_map_step_bit_equals_plain_on_the_card(cuda):
     assert rx.map_step.launches == before + 1
     assert torch.equal(got, rx.map_step_plain(g0.clone(), *args, UL_PROFILE))
     assert torch.equal(got[3], g0[3]) and not torch.equal(got, g0)
+
+
+def test_map_step_rays_to_the_grid_edge_bit_equal_plain_on_the_card(cuda):
+    """Scans whose rays end on the logical grid's border rows and
+    columns (testdata.edge_scans): the entry stages each quad's ray box,
+    16-byte aligned, next to the padding."""
+    beams, x, y, yaw = testdata.edge_scans()
+    z = torch.zeros(len(x))
+    args = [torch.from_numpy(a).to(cuda) for a in (beams, x, y, yaw)]
+    args += [z.to(cuda), z.to(cuda),
+             torch.ones(len(x), dtype=torch.bool, device=cuda)]
+    g0 = _random_grids(cuda, len(x))
+    got = rx.map_step(g0.clone(), *args, UL_PROFILE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rx.map_step_plain(g0.clone(), *args, UL_PROFILE))
+    assert not torch.equal(got, g0)
+
+
+@pytest.mark.parametrize("kernel, plain", [("residentx", "xla"),
+                                           ("conex", "cone"),
+                                           ("hybridx", "hybrid")])
+@pytest.mark.parametrize("case", ["tile_every_frame",
+                                  "recenter_after_reload"])
+def test_tile_cases_bit_equal_plain_on_the_card(cuda, case, kernel, plain):
+    """testdata.tile_flights: the exact kernel reloads its resident tile
+    on every frame, and recenters right after reloads; the cone kernel's
+    window jumps as far."""
+    frames = port.frames_to_torch(testdata.tile_flights()[case], cuda)
+    _assert_same(port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel),
+                 port.replay_mapping_batched(frames, UL_PROFILE, kernel=plain))
 
 
 @pytest.mark.parametrize("kernel", ["pallas", "pallas_db"])
