@@ -17,7 +17,8 @@ failure; nothing falls back to the CPU.  Phases:
   2. the sm_90a build of the three sources, one nvcc per source started
      together, with their seconds and each kernel's registers, shared
      memory, spills (-Xptxas=-v), blocks per SM (the occupancy
-     calculator) and SASS opcode counts (cuobjdump);
+     calculator; for the lattice kernel, at both SLAM lattices) and SASS
+     opcode counts (cuobjdump);
   3. exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames, short beams, and
@@ -26,7 +27,10 @@ failure; nothing falls back to the CPU.  Phases:
      then the same for the cone kernel in both modes (conex == cone,
      hybridx == hybrid), and hybridx == the JAX package's hybrid grids
      of the random flights; then the lattice kernel == its plain version
-     at the SLAM path's two slab shapes and match counts, and the
+     at the SLAM path's two slab shapes: random operands at the bench's
+     match counts, N = 1 and N = 3, all -1, all valid, out-of-slab and
+     extreme indices, unaligned tables, and the SLAM bench flights' real
+     pass-1 and loop operands; and the
      snapshot and scheduled-chunk entries == theirs, with recenters and
      with every snapshot chunk starting right after a tile reload; then
      the map-step entry == its plain version at B=1024 (random grids,
@@ -52,7 +56,8 @@ failure; nothing falls back to the CPU.  Phases:
      bench, UL_PROFILE at
      B=128 and UL_RT_PROFILE at B=256, T=256 (frames/s, checksum, per-stage
      seconds, launches, device busy and idle share, and the lattice kernel
-     and snapshot entry alone against their plain versions and bounds);
+     and snapshot entry alone against their plain versions and bounds,
+     with the lattice kernel's ratio to its bound and build facts);
      and the EKF bench at B=1024.  The hybridx grids' per-flight sums
      must equal the JAX package's hybrid replay's, and the SLAM checksums
      the JAX package's CPU results;
@@ -354,14 +359,23 @@ def _sass_counts(path) -> dict:
 
 
 # the redesigned kernels' occupancy queries: source -> (C entry, {function:
-# its argument})
+# its argument, or {label: argument} for a kernel launched at several
+# shapes})
 OCCUPANCY = {
     "replay_exact": ("mqs_replay_exact_blocks_per_sm",
                      {"replay_exact_kernel<false>": 0,
                       "replay_exact_kernel<true>": 1, "map_step_kernel": 2}),
     "replay_cone": ("mqs_replay_cone_blocks_per_sm",
                     {"replay_cone_kernel<false>": 0,
-                     "replay_cone_kernel<true>": 1})}
+                     "replay_cone_kernel<true>": 1}),
+    "match_lattice": ("mqs_match_lattice_blocks_per_sm",
+                      {"match_lattice_kernel": {"pass1": 7, "loop": 5}})}
+# the SLAM path's two lattices: stage -> (n_yaw, T), slab shape
+LATTICES = {"pass1": (7, 7), "loop": (5, 5)}
+SLAB_SHAPES = {"pass1": (104, 256), "loop": (96, 128)}
+# each kernel's build facts, filled by phase_build: source -> {function:
+# registers, shared memory, spills, blocks per SM, SASS counts}
+BUILD_FACTS: dict = {}
 
 
 def phase_build() -> None:
@@ -370,19 +384,29 @@ def phase_build() -> None:
     wall = time.perf_counter() - t0
     for name, info in built.items():
         res = _ptxas_resources(info["log"])
+        check(res, f"no ptxas resources in {name}'s build log")
         if name in OCCUPANCY:
             entry, arg = OCCUPANCY[name]
             fn = getattr(_build.load_library(name), entry)
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             fn.restype = ctypes.c_int
-            for r in res:
+
+            def blocks(a, fname):
                 n = ctypes.c_int(0)
-                check(fn(arg[r["function"]], ctypes.byref(n)) == 0,
-                      f"occupancy query of {r['function']}")
-                r["blocks_per_sm"] = n.value
+                check(fn(a, ctypes.byref(n)) == 0,
+                      f"occupancy query of {fname}")
+                return n.value
+            for r in res:
+                a = arg[r["function"]]
+                r["blocks_per_sm"] = (
+                    {k: blocks(v, r["function"]) for k, v in a.items()}
+                    if isinstance(a, dict) else blocks(a, r["function"]))
+        sass = _sass_counts(info["path"])
+        BUILD_FACTS[name] = {r["function"]: {
+            **r, "sass": (sass or {}).get(r["function"])} for r in res}
         say("build", kernel=name, target="sm_90a",
             flags=" ".join(_build.NVCC_FLAGS), seconds=info["seconds"],
-            resources=res, sass=_sass_counts(info["path"]))
+            resources=res, sass=sass)
     say("build_all", kernels=list(built), wall_seconds=wall)
 
 
@@ -543,21 +567,6 @@ def _time_kernel(grids, fn, reps: int) -> float:
     return _time_call(lambda: fn(grids), reps, grids.zero_)
 
 
-def _time_queued(fn, n: int = 20) -> float:
-    """ms per call of fn() over n calls queued back to back after one
-    more, by CUDA events: the card's time per launch for a wrapper that
-    does not wait for the card (its host work overlaps the kernels)."""
-    fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
 def _schedule(frames, kernel: str):
     if kernel == "residentx":
         return rx.schedule(frames, UL_PROFILE)
@@ -585,11 +594,41 @@ def _device_busy(frames, kernel: str) -> dict:
     return busy
 
 
-def _profiled_busy(fn, names) -> dict:
+def _launch_groups(prof, names) -> list:
+    """The launches of each kernel whose name holds one of `names` in a
+    finished profiler session, grouped by launch shape (grid, block,
+    registers per thread, shared memory bytes): their count and device
+    ms.  The raw events carry no launch shape, so this reads the
+    session's chrome trace, written to build/ and deleted."""
+    path = Path(__file__).resolve().parent / "build" / "launch_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    try:
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink()
+    groups = {}
+    for ev in events:
+        if ev.get("cat") != "kernel" or not any(n in ev.get("name", "")
+                                                 for n in names):
+            continue
+        a = ev.get("args", {})
+        key = (ev["name"], a.get("grid"), a.get("block"),
+               a.get("registers per thread"), a.get("shared memory"))
+        g = groups.setdefault(repr(key), [key, 0.0, 0])
+        g[1] += ev["dur"] / 1e3
+        g[2] += 1
+    return [{"name": k[0], "grid": k[1], "block": k[2], "registers": k[3],
+             "shared_memory": k[4], "launches": n, "device_ms": ms}
+            for k, ms, n in groups.values()]
+
+
+def _profiled_busy(fn, names, launch_groups: bool = False) -> dict:
     """One call of fn under torch.profiler (host and device): the summed
     device time of every kernel, copy and fill it ran and their count, the
     device ms and launches of each kernel whose name holds one of
-    `names`, the wall time of the profiled run, and the five host events
+    `names` (with launch_groups, also by launch shape: _launch_groups),
+    the wall time of the profiled run, and the five host events
     with the most summed time (`host_total`: nested events included, so a
     caller's time holds its callees').  It reads the trace's raw events
     (the profiler's kineto results): key_averages() builds an event tree
@@ -622,6 +661,8 @@ def _profiled_busy(fn, names) -> dict:
             "device_ops": dev_n,
             "kernel_device_ms": {k: v / 1e6 for k, v in kern_ns.items()},
             "kernel_launches": kern_n,
+            "kernel_launch_groups": (_launch_groups(prof, names)
+                                     if launch_groups else None),
             "host_total": [[k, t / 1e6, c] for k, (t, c) in top],
             "profiled_wall_s": wall}
 
@@ -1027,17 +1068,74 @@ def _random_lattice(device, N: int, shape, n_yaw: int, T: int, seed: int):
     return slabs, ry, rxi
 
 
+def _edge_lattice(device, N: int, stage: str, seed: int, kind: str):
+    """Lattice operands at a SLAM stage's shape: "mixed" (-1 masks,
+    out-of-slab and extreme int32 indices among in-slab ones), "all_valid",
+    "all_minus_one", or "unaligned" (mixed, with ry and rx 4 bytes off a
+    16-byte boundary: the kernel's word-by-word staging)."""
+    n_yaw, T = LATTICES[stage]
+    SR, SC = SLAB_SHAPES[stage]
+    slabs, ry, rxi = _random_lattice(device, N, (SR, SC), n_yaw, T, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    ry, rxi = ry.clamp(0, SR - 1), rxi.clamp(0, SC - 1)
+    if kind == "all_minus_one":
+        ry.fill_(-1)
+        rxi.fill_(-1)
+    elif kind in ("mixed", "unaligned"):
+        odd = torch.tensor([-1, -2, SR, SR + 1, SC, 2 ** 31 - 1, -2 ** 31,
+                            1 << 30, -(1 << 30)], dtype=torch.int32,
+                           device=device)
+        for a in (ry, rxi):
+            u = torch.rand(a.shape, device=device, generator=g)
+            pick = torch.randint(0, len(odd), a.shape, device=device,
+                                 generator=g)
+            a.copy_(torch.where(u < 0.2, -1, torch.where(u < 0.3, odd[pick],
+                                                          a)))
+    if kind == "unaligned":
+        def shifted(a):
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=device)
+            out = buf[1:].view(a.shape)
+            out.copy_(a)
+            return out
+        ry, rxi = shifted(ry), shifted(rxi)
+        check(ry.data_ptr() % 16 and rxi.data_ptr() % 16,
+              "the unaligned case is aligned")
+    return slabs, ry, rxi, n_yaw
+
+
+
+def _lattice_cases(device) -> dict:
+    """The lattice kernel's card cases: the random operands at the bench's
+    match counts (every index in [-1, SR + 2), so every beam is live), N =
+    1 and N = 3, all -1, all valid, out-of-slab and extreme indices,
+    unaligned tables, and the 4 SLAM bench flights' real pass-1 and loop
+    operands (testdata.slam_kernel_operands)."""
+    cases = {}
+    for N, stage in ((3584, "pass1"), (9984, "loop")):
+        n_yaw, T = LATTICES[stage]
+        cases[f"random_{stage}"] = _random_lattice(
+            device, N, SLAB_SHAPES[stage], n_yaw, T, N) + (n_yaw,)
+    for stage in LATTICES:
+        for N, kind in ((1, "mixed"), (3, "mixed"), (3, "all_valid"),
+                        (2, "all_minus_one"), (5, "unaligned")):
+            cases[f"{kind}_n{N}_{stage}"] = _edge_lattice(
+                device, N, stage, 100 * N + len(stage), kind)
+    _, real = testdata.slam_kernel_operands(
+        testdata.slam_bench_frames(4, device=device), UL_PROFILE)
+    cases.update({f"bench_{k}": v for k, v in real.items()})
+    return cases
+
+
 def phase_slam_kernels_vs_plain(device) -> None:
-    """The lattice kernel at both slab shapes and the bench's match counts,
-    the snapshot entry and map_chunk_sched with recenters: each == its
-    plain version, bit for bit."""
+    """The lattice kernel on its card cases (_lattice_cases), the snapshot
+    entry and map_chunk_sched with recenters: each == its plain version,
+    bit for bit."""
     before = launches()
-    for N, shape, n_yaw, T in ((3584, (104, 256), 7, 7),
-                               (9984, (96, 128), 5, 5)):
-        args = _random_lattice(device, N, shape, n_yaw, T, N)
-        got = ml.match_lattice(*args, n_yaw)
-        check(torch.equal(got, ml.match_lattice_plain(*args, n_yaw)),
-              f"match_lattice {shape} differs from its plain version")
+    cases = _lattice_cases(device)
+    for name, args in cases.items():
+        got = ml.match_lattice(*args)
+        check(torch.equal(got, ml.match_lattice_plain(*args)),
+              f"match_lattice {name} differs from its plain version")
     args, g0 = _random_slots(device)
     pcx, pcy = port.ops.world_to_cell(args[1], args[2], args[4], args[5],
                                       UL_PROFILE.map.res_m, 250, 250)
@@ -1075,11 +1173,11 @@ def phase_slam_kernels_vs_plain(device) -> None:
         *x, UL_PROFILE), UL_PROFILE)
     check(torch.equal(got, want), "map_chunk_sched differs from plain")
     n = {k: v - before[k] for k, v in launches().items()}
-    check(n["match_lattice"] >= 2 and n["replay_exact_snap"] >= 2
+    check(n["match_lattice"] >= len(cases) and n["replay_exact_snap"] >= 2
           and n["replay_exact"] >= 1, f"launches {n}")
     say("kernel_vs_plain", kernel=["match_lattice", "replay_exact_snap",
                                    "replay_exact (map_chunk_sched)"],
-        match_counts=[3584, 9984], slab_shapes=[[104, 256], [96, 128]],
+        lattice_cases={k: v[0].shape[0] for k, v in cases.items()},
         recenters=int(so["do"].sum()) + 2,
         snapshot_cases=["random_slots", "chunk_start_after_reload"],
         bit_equal=True, launches=n)
@@ -1121,45 +1219,6 @@ def phase_slam_vs_jax(device) -> None:
                                        "replay_exact")), f"launches {n}")
 
 
-def _lattice_operands(args, cfg, n_xy: int, n_yaw: int):
-    """match_slabs' operands (slabs .. origin_y) -> the lattice kernel's
-    (slabs, ry, rx, n_yaw), as match_slabs makes them."""
-    slabs, r0s, c0s, *scan = args
-    s = cfg.slam
-    cells = sm._lattice_cells(*scan, cfg.map, cfg.tof, n_xy, n_yaw,
-                              s.match_xy_step_m, s.match_yaw_step_deg)
-    ry, rxi = sm.lattice_indices(cells, r0s, c0s, GEOM)
-    return slabs, ry, rxi, n_yaw
-
-
-def _slam_operands(frames, cfg):
-    """The SLAM kernels' operands on this workload, made by the pipeline's
-    own functions: the snapshot entry's (grids, sched, snaps, n_kf) and
-    the lattice kernel's of the first pass-1 round (at the odometry), and
-    the lattice kernel's of the last round's first loop stage (at its
-    matched keyframes)."""
-    s = cfg.slam
-    B, T = frames["x_m"].shape
-    odo, sched = sp._slam_impl(frames, cfg, GEOM, None, None, upto=0)
-    beams, _ = port.ops.extract_beams(frames["grid_mm"], cfg.tof)
-    sl = sp._kf_slots(beams, sched, s.kf_every, cfg)
-    snap, match = sp._round_operands(sl, odo, s.kf_every, cfg, GEOM)
-    zeros = torch.zeros((B, GEOM.prows, GEOM.pcols), dtype=torch.int8,
-                        device=odo.device)
-    snap_ops = rx._snap_operands(zeros, *snap, sl.n_kf, cfg, GEOM) + (
-        sl.n_kf,)
-    _, slabs = rx.map_snap(zeros, *snap, sl.n_kf, cfg, GEOM)
-    pass1 = _lattice_operands([slabs.reshape((-1,) + slabs.shape[2:])]
-                              + match, cfg, s.match_n_xy, s.match_n_yaw)
-    kf = torch.arange(0, T, s.kf_every, device=odo.device)
-    matched = sp._slam_impl(frames, cfg, GEOM, None, None, upto=1)
-    *_, args = sp._loop_candidates(matched[:, kf], beams[:, kf],
-                                   sched["ox"][:, kf], sched["oy"][:, kf],
-                                   cfg, GEOM)
-    loop = _lattice_operands(args, cfg, s.loop_n_xy, s.loop_n_yaw)
-    return snap_ops, {"pass1": pass1, "loop": loop}
-
-
 def _lattice_bound(slabs, ry, rxi, n_yaw: int) -> dict:
     """The lattice kernel's bound on these operands.  Bytes: the index
     rows and the scores, each once, and every distinct 32-byte slab
@@ -1195,33 +1254,56 @@ def _lattice_bound(slabs, ry, rxi, n_yaw: int) -> dict:
             "slab_sectors": sectors, "slab_sectors_all": N * SR * per_row}
 
 
+def _lattice_times(args) -> dict:
+    """The lattice kernel on one stage's operands: call_ms, a CUDA-event
+    span around one call (host work included); plain_ms; and the max abs
+    error against the plain version."""
+    call_ms = _time_call(lambda: ml.match_lattice(*args), 5)
+    plain_ms = _time_call(lambda: ml.match_lattice_plain(*args), 1)
+    err = float((ml.match_lattice(*args) - ml.match_lattice_plain(*args))
+                .abs().max())
+    return {"call_ms": call_ms, "plain_ms": plain_ms, "max_abs_err": err}
+
+
+def _stage_launches(busy: dict, kernel: str, N: int) -> dict:
+    """The launches of `kernel` over N blocks in a profiled run (`busy`):
+    one launch shape, its launches and the device ms per launch."""
+    runs = [g for g in busy["kernel_launch_groups"]
+            if kernel in g["name"] and (g["grid"] or (None,))[0] == N]
+    check(len(runs) == 1, f"{kernel}'s launches over {N} blocks in the "
+                          f"profiled run: {runs}")
+    run = runs[0]
+    return {"ms": run["device_ms"] / run["launches"],
+            "ms_profiled_launches": run["launches"],
+            "launch": {k: run[k] for k in ("grid", "block", "registers",
+                                           "shared_memory")}}
+
+
 def _slam_kernels_alone(frames, cfg, smi: str, busy: dict) -> dict:
     """The lattice kernel and the snapshot entry alone on this SLAM
-    workload's operands (_slam_operands): time against the plain version,
-    error, bound.  ms is the card's time per launch: queued launches for
-    the lattice kernel, and for the snapshot entry its device time per
-    launch in `busy`, the profiled replay (_profiled_busy); call_ms is a
-    CUDA-event span around one call, host work included.  Returns their
-    entries of the kernels line (without launches)."""
-    snap_ops, lattice = _slam_operands(frames, cfg)
+    workload's operands (testdata.slam_kernel_operands): time against the
+    plain version, error, bound.  ms is the card's time per launch, its
+    device time per launch in `busy`, the profiled replay
+    (_profiled_busy): for the lattice kernel by stage, its launches over
+    that stage's match count; call_ms is a CUDA-event span around one
+    call, host work included.  Returns their entries of the kernels line
+    (without launches)."""
+    snap_ops, lattice = testdata.slam_kernel_operands(frames, cfg)
     out = {}
-    for stage, (slabs, ry, rxi, n_yaw) in lattice.items():
-        ms = _time_queued(lambda: ml.match_lattice(slabs, ry, rxi, n_yaw))
-        call_ms = _time_call(lambda: ml.match_lattice(slabs, ry, rxi, n_yaw),
-                             5)
-        plain_ms = _time_call(
-            lambda: ml.match_lattice_plain(slabs, ry, rxi, n_yaw), 1)
-        err = float((ml.match_lattice(slabs, ry, rxi, n_yaw)
-                     - ml.match_lattice_plain(slabs, ry, rxi, n_yaw))
-                    .abs().max())
-        check(err == 0, f"match_lattice vs plain max abs err {err}")
-        bound = _lattice_bound(slabs, ry, rxi, n_yaw)
+    build = BUILD_FACTS["match_lattice"]["match_lattice_kernel"]
+    for stage, args in lattice.items():
+        t = {**_stage_launches(busy, "match_lattice", args[0].shape[0]),
+             **_lattice_times(args)}
+        check(t["max_abs_err"] == 0,
+              f"match_lattice vs plain max abs err {t['max_abs_err']}")
+        bound = _lattice_bound(*args)
         say("kernel_alone", kernel="match_lattice", stage=stage,
-            N=slabs.shape[0], slab=list(slabs.shape[1:]), ms=ms,
-            call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err, **bound, card=smi)
+            N=args[0].shape[0], slab=list(args[0].shape[1:]), **t, **bound,
+            bound_ratio=t["ms"] / bound["bound_ms"],
+            build={**build, "blocks_per_sm": build["blocks_per_sm"][stage]},
+            card=smi)
         if stage == "pass1":
-            out["match_lattice"] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": plain_ms, **bound}
+            out["match_lattice"] = {**t, **bound}
     grids0, sched, snaps, n_kf = snap_ops
     snaps_k, snaps_p = torch.empty_like(snaps), torch.empty_like(snaps)
     g_k, g_p = grids0.clone(), grids0.clone()
@@ -1341,7 +1423,7 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     dt = min(times)
     stages = _stage_seconds(frames, cfg)
     busy = _profiled_busy(lambda: sp.slam_replay(frames, cfg),
-                          ("replay_exact", "match_lattice"))
+                          ("replay_exact", "match_lattice"), tag == "ul")
     say("bench", metric=METRIC[tag], value=B * T / dt, unit="frames/s",
         profile=cfg.name, checksum=ck, checksum_ref=CHECKSUM_REF[tag],
         checksum_matches_ref=ck == CHECKSUM_REF[tag],

@@ -55,14 +55,17 @@ def _target(name: str):
 
 def build_all(names) -> dict:
     """Compile csrc/<name>.cu for each name into a shared library unless an
-    identical build exists, one nvcc process per source, all started
-    together.  Returns {name: {"path", "seconds", "log"}}: seconds is 0.0
-    and log empty for a library that was already built."""
+    identical build exists (the library and nvcc's output of its build,
+    kept beside it), one nvcc process per source, all started together.
+    Returns {name: {"path", "seconds", "log"}}: seconds is 0.0 for a
+    library that was already built."""
     procs = {}
     for name in names:
         src, out = _target(name)
-        if out.exists():
-            builds.setdefault(name, {"path": out, "seconds": 0.0, "log": ""})
+        log = out.with_suffix(".log")
+        if out.exists() and log.exists():
+            builds.setdefault(name, {"path": out, "seconds": 0.0,
+                                     "log": log.read_text()})
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -77,6 +80,7 @@ def build_all(names) -> dict:
                           f"{stdout}{stderr}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(stdout + stderr)
         builds[name] = {"path": out, "seconds": time.perf_counter() - t0,
                         "log": stdout + stderr}
     if failed:

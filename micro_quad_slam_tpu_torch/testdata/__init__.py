@@ -283,3 +283,48 @@ def swarm_bench_result(device=None) -> dict:
     fin, _ = sim_run(st, world, SWARM_T, UL_PROFILE, **SWARM_RUN)
     sums = grid_sums(fin.mapper.grid.cpu().numpy())["sums"]
     return {"checksum": np.int64(int32_total(sums)), "sums": sums}
+
+
+def slam_kernel_operands(frames: dict, cfg) -> tuple:
+    """The SLAM kernels' operands on the flights `frames` under profile
+    `cfg`, made by the pipeline's own functions: the snapshot entry's
+    (grids, sched, snaps, n_kf), and the lattice kernel's (slabs, ry, rx,
+    n_yaw) of the first pass-1 round (at the odometry) under "pass1" and
+    of the last round's first loop stage (at its matched keyframes) under
+    "loop"."""
+    import torch
+
+    from micro_quad_slam_tpu_torch.ops import residentx as rx
+    from micro_quad_slam_tpu_torch.ops import scanmatch as sm
+    from micro_quad_slam_tpu_torch.ops.beams import extract_beams
+    from micro_quad_slam_tpu_torch.ops.raycast import DEFAULT_GEOM as geom
+    from micro_quad_slam_tpu_torch.slam import pipeline as sp
+
+    s = cfg.slam
+
+    def lattice(args, n_xy: int, n_yaw: int):
+        slabs, r0s, c0s, *scan = args
+        cells = sm._lattice_cells(*scan, cfg.map, cfg.tof, n_xy, n_yaw,
+                                  s.match_xy_step_m, s.match_yaw_step_deg)
+        ry, rxi = sm.lattice_indices(cells, r0s, c0s, geom)
+        return slabs, ry, rxi, n_yaw
+
+    B, T = frames["x_m"].shape
+    odo, sched = sp._slam_impl(frames, cfg, geom, None, None, upto=0)
+    beams, _ = extract_beams(frames["grid_mm"], cfg.tof)
+    sl = sp._kf_slots(beams, sched, s.kf_every, cfg)
+    snap, match = sp._round_operands(sl, odo, s.kf_every, cfg, geom)
+    zeros = torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
+                        device=odo.device)
+    snap_ops = rx._snap_operands(zeros, *snap, sl.n_kf, cfg, geom) + (
+        sl.n_kf,)
+    _, slabs = rx.map_snap(zeros, *snap, sl.n_kf, cfg, geom)
+    pass1 = lattice([slabs.reshape((-1,) + slabs.shape[2:])] + match,
+                    s.match_n_xy, s.match_n_yaw)
+    kf = torch.arange(0, T, s.kf_every, device=odo.device)
+    matched = sp._slam_impl(frames, cfg, geom, None, None, upto=1)
+    *_, args = sp._loop_candidates(matched[:, kf], beams[:, kf],
+                                   sched["ox"][:, kf], sched["oy"][:, kf],
+                                   cfg, geom)
+    return snap_ops, {"pass1": pass1,
+                      "loop": lattice(args, s.loop_n_xy, s.loop_n_yaw)}

@@ -119,6 +119,90 @@ def test_match_kernel_bit_equals_plain_on_the_card(cuda, shape, n_yaw, T):
     assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
 
 
+def _lattice(N, shape, n_yaw, seed, kind):
+    """Seeded lattice operands on the CPU: "random" (every index in
+    [-1, SR + 2): every beam live, lookups all over the slab), "mixed"
+    (-1 masks, out-of-slab and extreme int32 indices among in-slab ones),
+    "all_valid", "all_minus_one"."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    SR, SC = shape
+    size = (N, n_yaw * n_yaw, 32)
+    slabs = torch.randint(-128, 128, (N, SR, SC), generator=g,
+                          dtype=torch.int8)
+    if kind == "random":
+        return (slabs, torch.randint(-1, SR + 2, size, generator=g,
+                                     dtype=torch.int32),
+                torch.randint(-1, SC + 2, size, generator=g,
+                              dtype=torch.int32))
+    ry = torch.randint(0, SR, size, generator=g, dtype=torch.int32)
+    rx_ = torch.randint(0, SC, size, generator=g, dtype=torch.int32)
+    if kind == "all_minus_one":
+        ry.fill_(-1)
+        rx_.fill_(-1)
+    elif kind == "mixed":
+        odd = torch.tensor([-1, -2, SR, SR + 1, SC, 2 ** 31 - 1, -2 ** 31,
+                            1 << 30, -(1 << 30)], dtype=torch.int32)
+        for a in (ry, rx_):
+            u = torch.rand(size, generator=g)
+            pick = odd[torch.randint(0, len(odd), size, generator=g)]
+            a.copy_(torch.where(u < 0.2, -1, torch.where(u < 0.3, pick, a)))
+    return slabs, ry, rx_
+
+
+@pytest.mark.parametrize("shape, n_yaw", [((104, 256), 7), ((96, 128), 5)])
+@pytest.mark.parametrize("N, kind, unaligned", [
+    (1, "mixed", False), (3, "mixed", False), (3, "all_valid", False),
+    (2, "all_minus_one", False), (700, "random", False),
+    (5, "mixed", True)])
+def test_match_kernel_edge_cases_on_the_card(cuda, shape, n_yaw, N, kind,
+                                             unaligned):
+    """N = 1, N = 3, all -1, all valid, out-of-slab and extreme indices,
+    every beam live (random), and tables 4 bytes off a 16-byte boundary
+    (the kernel's word-by-word staging)."""
+    args = [a.to(cuda) for a in _lattice(N, shape, n_yaw, N + n_yaw, kind)]
+    if unaligned:
+        for i in (1, 2):
+            buf = torch.empty(args[i].numel() + 1, dtype=torch.int32,
+                              device=cuda)
+            args[i] = buf[1:].view(args[i].shape)
+            args[i].copy_(_lattice(N, shape, n_yaw, N + n_yaw, kind)[i])
+            assert args[i].data_ptr() % 16
+    before = ml.match_lattice.launches
+    got = ml.match_lattice(*args, n_yaw)
+    torch.cuda.synchronize()
+    assert ml.match_lattice.launches == before + 1
+    assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
+
+
+@pytest.mark.parametrize("stage", ["pass1", "loop"])
+def test_match_kernel_on_bench_operands_on_the_card(cuda, stage):
+    """The 4 SLAM bench flights' real first pass-1 round and loop stage
+    (most beams miss, so most warps skip most beams)."""
+    _, ops = testdata.slam_kernel_operands(
+        testdata.slam_bench_frames(4, device=cuda), UL_PROFILE)
+    got = ml.match_lattice(*ops[stage])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ml.match_lattice_plain(*ops[stage]))
+
+
+@pytest.mark.parametrize("N, SR, SC, n_yaw, T, NB", [
+    (2, 8, 16, 3, 3, 16),               # NB != 32: lane = beam
+    (1, 8, 16, 21, 7, 32),              # over 1,024 candidates: one block
+    (1, 32768, 32769, 3, 3, 32),        # 2^30 cells: row offsets r*SC
+    (1, 8, 16, 1024, 1, 32)])           # tables past the shared memory
+def test_match_lattice_refuses_lattices_the_kernel_does_not_take(
+        cuda, N, SR, SC, n_yaw, T, NB):
+    """The C entry refuses them (-1), the wrapper raises, and nothing is
+    launched; the plain version takes them all."""
+    slabs = torch.zeros((N, SR, SC), dtype=torch.int8, device=cuda)
+    idx = torch.zeros((N, n_yaw * T, NB), dtype=torch.int32, device=cuda)
+    before = ml.match_lattice.launches
+    with pytest.raises(ValueError, match="does not take"):
+        ml.match_lattice(slabs, idx, idx, n_yaw)
+    assert ml.match_lattice.launches == before
+    assert not ml.match_lattice_plain(slabs, idx, idx, n_yaw).any()
+
+
 def _slots(device, K=8, jump=False):
     """4 random flights' every 8th frame as keyframe slots, with a
     chunk-start recenter (flight 0, slot 4) and a mid-chunk one (flight 1,

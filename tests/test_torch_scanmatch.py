@@ -117,6 +117,23 @@ def test_match_lattice_checks_operands_and_devices():
         ml.match_lattice(slabs.to("meta"), idx.to("meta"), idx.to("meta"), 3)
 
 
+# lattices the CUDA kernel does not take (its C entry refuses them, and
+# tests/test_torch_kernel.py checks that on the card): NB != 32 (lane =
+# beam), over 1,024 candidates (one block a match), slabs of 2^30 cells
+# (row offsets r*SC), tables past a block's shared memory
+REFUSED_LATTICES = [(2, 8, 16, 3, 3, 16), (1, 8, 16, 21, 7, 32),
+                    (0, 32768, 32769, 3, 3, 32), (1, 8, 16, 1024, 1, 32)]
+
+
+@pytest.mark.parametrize("N, SR, SC, n_yaw, T, NB", REFUSED_LATTICES)
+def test_match_lattice_plain_takes_lattices_the_kernel_does_not(
+        N, SR, SC, n_yaw, T, NB):
+    slabs = torch.zeros((N, SR, SC), dtype=torch.int8)
+    idx = torch.zeros((N, n_yaw * T, NB), dtype=torch.int32)
+    assert ml._check(slabs, idx, idx, n_yaw) == T
+    assert ml.match_lattice(slabs, idx, idx, n_yaw).shape == (N, n_yaw, T, T)
+
+
 def _grids_and_windows(N, seed):
     rng = np.random.default_rng(seed)
     padded = rng.integers(-80, 81, (N, GEOM.prows, GEOM.pcols)).astype(
