@@ -69,7 +69,23 @@ failure; nothing falls back to the CPU.  Phases:
      CPU result (every quad's grid sum), the map-step launches, the
      device's busy time and idle share in one profiled run, and the
      map-step kernel's device time per launch against its plain version
-     and its bound on the run's own scan ticks.
+     and its bound on the run's own scan ticks;
+  9. the live-topology path (run before the bench phases): the first
+     SLAM bench flight as a T=256 dual-UART capture (scanlog_to_wirecap)
+     through replay_wirecap with kernel="residentx" and "hybridx", each
+     grid equal to the card's scanlog replay of the log as the wire
+     carries it and to the JAX package's CPU grid (testdata wire_ref),
+     and the capture's frames through slam_replay against the JAX
+     package's CPU SLAM of them; the exact, cone, lattice and snapshot
+     kernels must launch.  Then the residentx bench replay split at
+     T=128 around a save_checkpoint/restore_checkpoint round trip
+     (checksum -239317596), the B=1024 bench swarm run 100 + 100 ticks
+     around a checkpoint against 200 unbroken ticks (every field, every
+     quad), and `python -m micro_quad_slam_tpu_torch replay --wirecap`
+     as a subprocess.
+
+The bench phases take their end-to-end times from the port's bench entry
+(micro_quad_slam_tpu_torch/bench.py), so each workload is timed once.
 
 It imports the port and numpy only: the inputs and reference results are
 committed files of the port (micro_quad_slam_tpu_torch/testdata).
@@ -94,7 +110,7 @@ import numpy as np
 import torch
 
 import micro_quad_slam_tpu_torch as port
-from micro_quad_slam_tpu_torch import testdata
+from micro_quad_slam_tpu_torch import bench, testdata
 from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops import conemode
 from micro_quad_slam_tpu_torch.ops import conex as cx
@@ -112,7 +128,9 @@ SLAM_PROFILES = {"ul": port.UL_PROFILE, "rt": port.UL_RT_PROFILE}
 # the JAX package's bench lines on the TPU (BENCH_r05): checksum anchors
 CHECKSUM_REF = {"residentx": -239317572, "hybridx": -401735680,
                 "ul": -28317856, "rt": -56410560, "ekf": 1024,
-                "swarm": -8944084}
+                "swarm": -8944084,
+                # the exact bench replay off the TPU (ROADMAP section C)
+                "residentx_off_tpu": -239317596}
 METRIC = {"residentx": "fused_sensor_frames_per_sec_per_chip",
           "hybridx": "fused_sensor_frames_per_sec_per_chip_hybridx",
           "ul": "slam_frames_per_sec_per_chip",
@@ -529,22 +547,6 @@ def phase_resume(device) -> None:
         say("resume", kernel=kernel, split=T // 2, bit_equal=True)
 
 
-def _time_replay(frames, kernel: str, reps: int):
-    """End to end, schedule included, after one warm-up."""
-    def run():
-        st, outs = port.replay_mapping_batched(frames, UL_PROFILE,
-                                               kernel=kernel)
-        torch.cuda.synchronize()
-        return st, outs
-    state, outs = run()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        state, outs = run()
-        times.append(time.perf_counter() - t0)
-    return times, state, outs
-
-
 def _time_call(fn, reps: int, setup=None) -> float:
     """ms per call of fn() by CUDA events, with setup() (outside the timed
     span) before every call."""
@@ -909,20 +911,27 @@ def _bound(name: str, sched, hybrid: bool = False) -> dict:
 def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
                 reps: int = 3, plain_reps: int = 3) -> dict:
     """bench.py's line for `kernel` ("residentx" or "hybridx") on the
-    card, then its CUDA kernel alone against its plain version.  Returns
-    the kernel's entry of the kernels line."""
+    card, timed end to end by the port's bench entry (bench.bench_replay:
+    a warm-up, then the best of the reps), then its CUDA kernel alone
+    against its plain version.  Returns the kernel's entry of the kernels
+    line."""
     name = "replay_exact" if kernel == "residentx" else "replay_cone"
-    frames = port.frames_to_torch(testdata.bench_frames(B), device)
+    frames = port.frames_to_torch(testdata.bench_frames(B, T), device)
     check(frames["x_m"].shape == (B, T), "bench frames")
     torch.cuda.synchronize()
 
     reset_launches()                      # count this path's run only
-    times_k, st_k, outs_k = _time_replay(frames, kernel, reps)
+    line, (st_k, outs_k) = bench.bench_replay(
+        kernel, B, T, reps, device, first=kernel == "residentx",
+        frames=frames)
+    times_k = line["rep_seconds"]
     n_launch = launches()
     metrics = port.batch_metrics(outs_k)
     sched_s = _time_schedule(frames, kernel, reps)
     busy = _device_busy(frames, kernel)
-    times_p, st_p, outs_p = _time_replay(frames, PLAIN[kernel], plain_reps)
+    plain_line, (st_p, outs_p) = bench.bench_replay(
+        PLAIN[kernel], B, T, plain_reps, device, frames=frames)
+    times_p = plain_line["rep_seconds"]
     dt_k, dt_p = min(times_k), min(times_p)
     idle = None if busy["busy_ms"] is None else 1 - busy["busy_ms"] / (dt_k * 1e3)
 
@@ -943,8 +952,10 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
                   f"hybridx per-flight {k} differ from the JAX package's in "
                   f"{int((got != ref).sum())} flights")
         extra["per_flight_sums_equal_jax_cpu"] = True
+    check(line["checksum"] == ck, "the bench line's checksum")
     say("bench", metric=METRIC[kernel],
         value=B * T / dt_k, unit="frames/s", kernel=kernel,
+        bench_line=line,
         checksum=ck, checksum_ref=CHECKSUM_REF[kernel],
         checksum_matches_ref=ck == CHECKSUM_REF[kernel], **extra,
         frames_used=used, frames_total=total,
@@ -1404,13 +1415,9 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     frames = testdata.slam_bench_frames(B, T, device=device)
     torch.cuda.synchronize()
     reset_launches()                      # count this path's run only
-    times = []
-    for i in range(reps + 1):
-        t0 = time.perf_counter()
-        res = sp.slam_replay(frames, cfg)
-        torch.cuda.synchronize()
-        if i:
-            times.append(time.perf_counter() - t0)
+    line, res = bench.bench_slam("acc" if tag == "ul" else "rt", B, T, reps,
+                                 device, frames=frames)
+    times = line["rep_seconds"]
     n_launch = launches()
     for k in ("match_lattice", "replay_exact_snap", "replay_exact"):
         check(n_launch[k] >= reps + 1, f"slam {tag} never launched {k}")
@@ -1424,7 +1431,9 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     stages = _stage_seconds(frames, cfg)
     busy = _profiled_busy(lambda: sp.slam_replay(frames, cfg),
                           ("replay_exact", "match_lattice"), tag == "ul")
+    check(line["checksum"] == ck, "the bench line's checksum")
     say("bench", metric=METRIC[tag], value=B * T / dt, unit="frames/s",
+        bench_line=line,
         profile=cfg.name, checksum=ck, checksum_ref=CHECKSUM_REF[tag],
         checksum_matches_ref=ck == CHECKSUM_REF[tag],
         checksum_jax_cpu=want, rep_seconds=times,
@@ -1456,14 +1465,10 @@ def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
     replicated to B=1024; checksum = the int32 sum of the x track cast to
     int32, against the JAX package's CPU track."""
     frames = testdata.slam_bench_frames(B, T, device=device)
-    times = []
-    for i in range(reps + 1):
-        t0 = time.perf_counter()
-        _, track = fu.replay_fusion_batched(frames, UL_PROFILE)
-        torch.cuda.synchronize()
-        if i:
-            times.append(time.perf_counter() - t0)
+    line, track = bench.bench_ekf(B, T, reps, device, frames=frames)
+    times = line["rep_seconds"]
     ck = checksum(track["x"].to(torch.int32))
+    check(line["checksum"] == ck, "the bench line's checksum")
     x = testdata.reference("slam_bench_ref")["ekf_x"]
     want = checksum(torch.from_numpy(np.concatenate([x] * (B // 4))).to(
         torch.int32))
@@ -1474,7 +1479,7 @@ def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
                                                            UL_PROFILE), ())
     dt = min(times)
     say("bench", metric=METRIC["ekf"], value=B * T / dt, unit="frames/s",
-        checksum=ck, checksum_ref=CHECKSUM_REF["ekf"],
+        bench_line=line, checksum=ck, checksum_ref=CHECKSUM_REF["ekf"],
         checksum_matches_ref=ck == CHECKSUM_REF["ekf"], checksum_jax_cpu=want,
         max_abs_err_x_vs_jax_cpu=err, rep_seconds=times,
         device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
@@ -1624,22 +1629,29 @@ def _run_swarm(world, st):
     return fin, diag
 
 
-def _run_swarm_keeping_map_steps(world, st0):
-    """_run_swarm with the simulator's map_step wrapped to keep each scan
-    tick's operands (the launches still count): (fin, diag, [(grids
-    before, [beams .. enabled])])."""
+def _bench_swarm_keeping_map_steps(world, st0, reps: int):
+    """bench.bench_swarm (a warm-up run, then `reps` timed runs) with the
+    simulator's map_step wrapped to keep the first run's scan ticks'
+    operands (the launches still count): (line, fin, diag, [(grids
+    before, [beams .. enabled])]).  Only the warm-up clones."""
     ticks = []
     real = sim.map_step
+    n_scans = (testdata.SWARM_T * testdata.SWARM_RUN["dt_ms"]
+               // testdata.SWARM_RUN["scan_period_ms"])
 
     def keep(grids, *args):
-        ticks.append((grids.clone(), [a.clone() for a in args[:7]]))
+        if len(ticks) < n_scans:
+            ticks.append((grids.clone(), [a.clone() for a in args[:7]]))
         return real(grids, *args)
 
     sim.map_step = keep
     try:
-        return (*_run_swarm(world, st0), ticks)
+        line, (fin, diag) = bench.bench_swarm(
+            testdata.SWARM_B, testdata.SWARM_T, reps, st0.x.device,
+            start=(world, st0))
     finally:
         sim.map_step = real
+    return line, fin, diag, ticks
 
 
 def _map_step_alone(ticks) -> dict:
@@ -1675,7 +1687,8 @@ def _map_step_alone(ticks) -> dict:
 def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     """bench.py's swarm line (bench.py:45-81) on the card: B=1024 quads,
     T=1000 control ticks at 1 kHz, a scan every 100 ms, the airborne
-    start; best of `reps` after a warm-up.  The checksum and every quad's
+    start; best of `reps` after a warm-up, timed by the port's bench
+    entry (bench.bench_swarm).  The checksum and every quad's
     grid sum must equal the port's committed CPU run (swarm_bench_ref);
     the TPU record drew its noise from jax.random, another generator.
     Returns the map-step kernel's entry of the kernels line."""
@@ -1685,12 +1698,8 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     reset_launches()                      # count this path's runs only
     # the warm-up run also keeps the scan ticks' operands for the kernel's
     # own check, time and bound (_map_step_alone)
-    fin, diag, ticks = _run_swarm_keeping_map_steps(world, st0)
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fin, diag = _run_swarm(world, st0)
-        times.append(time.perf_counter() - t0)
+    line, fin, diag, ticks = _bench_swarm_keeping_map_steps(world, st0, reps)
+    times = line["rep_seconds"]
     n_launch = launches()
     runs = reps + 1
     check(n_launch["map_step"] == 10 * runs,
@@ -1702,7 +1711,8 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     check(np.array_equal(sums, ref["sums"]),
           f"swarm per-quad grid sums differ from the port's CPU run in "
           f"{int((sums != ref['sums']).sum())} quads")
-    check(ck == int(ref["checksum"]), f"swarm checksum {ck}")
+    check(ck == int(ref["checksum"]) == line["checksum"],
+          f"swarm checksum {ck}")
     check(int((fin.mapper.grid != 0).sum()) > 100 * B, "the swarm mapped "
                                                         "nothing")
     dt = min(times)
@@ -1712,7 +1722,7 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     ms = busy["kernel_device_ms"][key] / profiled
     states = np.bincount(diag["state"][-1].cpu().numpy(), minlength=10)
     say("bench", metric=METRIC["swarm"], value=B * T / dt,
-        unit="quad-ticks/s", checksum=ck,
+        unit="quad-ticks/s", bench_line=line, checksum=ck,
         checksum_port_cpu=int(ref["checksum"]),
         per_quad_sums_equal_port_cpu=True,
         checksum_tpu_record=CHECKSUM_REF["swarm"],
@@ -1742,6 +1752,229 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
                             "micro_quad_slam_tpu/ops/pallas_raycast.py:212"]}
 
 
+# ------------------------------------------------------------------ wire
+
+def _flat_state(d: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flat_state(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _path_launches(expect: dict, what: str) -> dict:
+    """The launch counts since the last reset_launches(): each kernel
+    named in `expect` launched as often as its value says (None: at least
+    once), every other kernel never."""
+    torch.cuda.synchronize()
+    n = launches()
+    for k, v in n.items():
+        want = expect.get(k, 0)
+        check(v >= 1 if want is None else v == want,
+              f"{what} launched {k} {v} times, not "
+              f"{'at least once' if want is None else want}")
+    return {k: v for k, v in n.items() if v}
+
+
+def _wire_replays(device, cap, log) -> dict:
+    """replay_wirecap of the capture through both whole-replay kernels,
+    each launching its kernel once and no other (counted around that call
+    alone), each grid against the card's scanlog replay of the log as the
+    wire carries it, and against the JAX package's CPU grid (wire_ref)."""
+    import dataclasses
+
+    from micro_quad_slam_tpu_torch.replay import livestream as ls
+
+    ref = testdata.reference("wire_ref")
+    wire_log = port.scanlog_to_arrays(
+        dataclasses.replace(log, grid_mm=ls.wire_mm(log.grid_mm)))
+    plain_log = port.scanlog_to_arrays(log)
+    out = {}
+    for kernel, key, name in (("residentx", "exact_grid", "replay_exact"),
+                              ("hybridx", "hybrid_grid", "replay_cone")):
+        torch.cuda.synchronize()
+        reset_launches()                  # count this replay_wirecap only
+        t0 = time.perf_counter()
+        st, outs, n = ls.replay_wirecap(cap, UL_PROFILE, kernel=kernel,
+                                        device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _path_launches({name: 1}, f"replay_wirecap({kernel})")
+        grid = port.logical_grid(st.grid).cpu().numpy()
+        scan = {}
+        for name, f in (("wire", wire_log), ("plain", plain_log)):
+            sst, _ = replay({k: v[None] for k, v in f.items()}, device,
+                            kernel)
+            scan[name] = port.logical_grid(sst.grid[0]).cpu().numpy()
+        jax_diff = int((grid != ref[key]).sum())
+        log_diff = int((grid != scan["wire"]).sum())
+        check(n == 256 and jax_diff == 0,
+              f"wire {kernel}: {jax_diff} cells differ from the JAX "
+              f"package's CPU grid")
+        check(log_diff == 0, f"wire {kernel}: {log_diff} cells differ from "
+                             f"the scanlog replay of the same log")
+        check(int(outs["used"].sum()) > 200, f"wire {kernel}: frames used")
+        out[kernel] = {"frames": n, "seconds": secs, "launches": counts,
+                       "equal_jax_cpu_grid": True,
+                       "equal_scanlog_replay": True,
+                       "cells_differing_from_the_log_before_the_0xA6_nudge":
+                           int((grid != scan["plain"]).sum()),
+                       "occupied": int((grid > 10).sum()),
+                       "free": int((grid < -10).sum())}
+    return out
+
+
+def _wire_slam(device, cap) -> dict:
+    """slam_replay of the capture's frames against the JAX package's CPU
+    SLAM of them (wire_ref), within phase_slam_vs_jax's tolerances; the
+    SLAM kernels and the exact kernel's pass 3 must launch in that call."""
+    from micro_quad_slam_tpu_torch.replay import livestream as ls
+
+    ref = testdata.reference("wire_ref")
+    frames = port.frames_to_torch(
+        {k: v[None] for k, v in ls.wirecap_to_frames(cap).items()}, device)
+    torch.cuda.synchronize()
+    reset_launches()                      # count this slam_replay only
+    t0 = time.perf_counter()
+    res = sp.slam_replay(frames, UL_PROFILE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _path_launches({"match_lattice": None, "replay_exact_snap": None,
+                             "replay_exact": 1}, "the wire slam_replay")
+    errs = {k: max(_track_err(getattr(res, k), ref[f"slam_{k}"]))
+            for k in ("odo_track", "kf_nodes", "track")}
+    sums = testdata.grid_sums(res.grid.cpu().numpy())
+    for k, tol in (("odo_track", 1e-5), ("kf_nodes", 1e-4), ("track", 1e-4)):
+        check(errs[k] <= tol, f"wire slam: {k} off by {errs[k]}")
+    for k in ("sums", "weighted"):
+        check(np.array_equal(sums[k], ref[f"slam_{k}"]),
+              f"wire slam: grid {k} differ from the JAX package's")
+    return {"seconds": secs, "launches": counts, "max_abs_err": errs,
+            "grid_sums": sums["sums"].tolist(), "grid_sums_equal_jax": True}
+
+
+def _checkpoint_split(device, tmp: Path, B: int = 1024, T: int = 256) -> dict:
+    """The residentx bench workload replayed as T/2 frames, a checkpoint
+    written by save_checkpoint and read back, and the other T/2 frames."""
+    from micro_quad_slam_tpu_torch.utils import checkpoint as ck
+
+    frames = testdata.bench_frames(B)
+    h = T // 2
+    t0 = time.perf_counter()
+    st, _ = replay({k: v[:, :h] for k, v in frames.items()}, device,
+                   "residentx")
+    path = ck.save_checkpoint(str(tmp / "replay"),
+                              port.mapping_state_to_numpy(st), step=h)
+    back = port.mapping_state_from_numpy(
+        ck.restore_checkpoint(ck.latest_checkpoint(str(tmp / "replay"))),
+        device)
+    st, _ = replay({k: v[:, h:] for k, v in frames.items()}, device,
+                   "residentx", state0=back)
+    ck_sum = checksum(st.grid)
+    secs = time.perf_counter() - t0
+    want = CHECKSUM_REF["residentx_off_tpu"]
+    check(ck_sum == want, f"split bench replay checksum {ck_sum} != {want}")
+    return {"B": B, "T": T, "split": h, "checksum": ck_sum,
+            "checkpoint_bytes": Path(path).stat().st_size, "seconds": secs}
+
+
+def _swarm_resume(device, tmp: Path, half: int = 100) -> dict:
+    """The bench swarm (B=1024) for 2 x `half` ticks unbroken, and as
+    `half` ticks, a checkpoint (the state and its generator) written and
+    read back, and `half` more: every field equal, on every quad."""
+    from micro_quad_slam_tpu_torch.utils import checkpoint as ck
+
+    world, st0, _ = testdata.swarm_bench(device=device)
+    run = lambda st, n: sim.sim_run(st, world, n, UL_PROFILE,   # noqa: E731
+                                    **testdata.SWARM_RUN)[0]
+    t0 = time.perf_counter()
+    full = run(st0, 2 * half)
+    part = run(st0, half)
+    ck.save_checkpoint(str(tmp / "sim"), {
+        **sim.sim_state_to_numpy(part), "gen": part.gen.get_state().numpy()},
+        step=half)
+    back = sim.sim_state_from_numpy(
+        ck.restore_checkpoint(ck.latest_checkpoint(str(tmp / "sim"))),
+        device)
+    resumed = run(back, half)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    a = _flat_state(sim.sim_state_to_numpy(resumed))
+    b = _flat_state(sim.sim_state_to_numpy(full))
+    differ = sorted(k for k in b if not np.array_equal(a[k], b[k],
+                                                       equal_nan=True))
+    quads = int(np.all(a["mapper.grid"] == b["mapper.grid"],
+                       axis=(1, 2)).sum())
+    B = testdata.SWARM_B
+    check(not differ and quads == B and resumed.scan_count == 2
+          and torch.equal(resumed.gen.get_state(), full.gen.get_state()),
+          f"swarm resume differs in {differ}, {B - quads} quads' grids")
+    return {"B": B, "ticks": [half, half], "scan_ticks": resumed.scan_count,
+            "quads_equal": quads, "fields_equal": len(b), "seconds": secs}
+
+
+def _cli_wire_replay(tmp: Path, cap) -> dict:
+    """`python -m micro_quad_slam_tpu_torch replay --wirecap ... --kernel
+    residentx --device cuda` as a subprocess."""
+    from micro_quad_slam_tpu_torch.formats.wirecap import write_wirecap
+
+    path = tmp / "wire.cap"
+    write_wirecap(str(path), cap)
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "micro_quad_slam_tpu_torch", "replay",
+           "--wirecap", str(path), "--kernel", "residentx", "--device",
+           "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=root)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the CLI's wire replay exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "stdout": proc.stdout.strip(),
+            "seconds": secs}
+
+
+def phase_wire(device, smi: str) -> None:
+    """The live-topology path at full width: the first SLAM bench flight
+    as a T=256 dual-UART capture (scanlog_to_wirecap), replayed through
+    replay_wirecap with the exact and the cone kernel, and its frames
+    through slam_replay; the four kernels of the path must launch.  Then
+    a checkpoint round trip inside the residentx bench replay, a swarm
+    resumed from a checkpoint, and the CLI's wire replay."""
+    import shutil
+    import tempfile
+
+    from micro_quad_slam_tpu_torch.replay import livestream as ls
+
+    log = testdata.wire_flight()
+    committed, _ = testdata.load("slam_bench_flights")
+    flight = port.scanlog_to_arrays(log)
+    check(all(np.array_equal(v, committed[k][0]) for k, v in flight.items()),
+          "the wire flight is not the first SLAM bench flight")
+    cap = ls.scanlog_to_wirecap(log)
+    check(np.array_equal(ls.wirecap_to_frames(cap)["grid_mm"],
+                         ls.wire_mm(log.grid_mm)),
+          "the capture's millimetres")
+    replays = _wire_replays(device, cap, log)
+    slam = _wire_slam(device, cap)
+    say("wire_replay", records=len(cap), kernels=replays, card=smi)
+    say("wire_slam", **slam, card=smi)
+    say("wire_launches", **{f"replay_wirecap_{k}": v["launches"]
+                            for k, v in replays.items()},
+        slam_replay=slam["launches"])
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="wire_", dir=build))
+    try:
+        say("checkpoint_split", **_checkpoint_split(device, tmp), card=smi)
+        say("swarm_resume", **_swarm_resume(device, tmp), card=smi)
+        say("cli_wire_replay", **_cli_wire_replay(tmp, cap), card=smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _jax_package_loaded() -> list:
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -1764,6 +1997,7 @@ def main() -> int:
     phase_resume(device)
     phase_slam_vs_jax(device)
     phase_swarm_vs_jax(device)
+    phase_wire(device, smi)
     kernels = [phase_bench(device, smi, "residentx"),
                phase_bench(device, smi, "hybridx", plain_reps=1)]
     slam = phase_slam_bench(device, smi, "ul", 128)

@@ -21,11 +21,17 @@ and the closed-loop swarm simulator (models/simulator.py) with the UL
 behaviour machine (models/behavior.py), the frontier queries
 (ops/raycast.py), the LK vision flow (ops/flow.py) and the exact
 kernel's map-step entry (ops/residentx.py::map_step), which the mapping
-replay's per-frame "pallas" and "pallas_db" names also take.
+replay's per-frame "pallas" and "pallas_db" names also take; the
+live-topology path (formats/scanframe.py, wirecap.py, mavlink.py,
+replay/telemetry.py, replay/livestream.py: raw dual-UART captures in),
+checkpoints (utils/checkpoint.py), the navlog, PGM and MAVLink writers,
+the synthetic flight generator (sim/synthio.py), the command line
+(__main__.py) and the bench entry (bench.py).
 
 The port imports nothing of the JAX package, not even its modules that
 do not import jax: it keeps its own copy of the configuration
-(utils/config.py) and of the scanlog reader (formats/scanlog.py).
+(utils/config.py), of the file formats (formats/) and of the flight
+generator (sim/synthio.py).
 Entry points run on the CUDA device unless the caller passes "cpu".
 """
 

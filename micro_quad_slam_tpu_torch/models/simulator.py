@@ -329,9 +329,14 @@ def sim_state_from_numpy(d, device=None, seed: int = 0) -> SimState:
     `jax.tree.map(np.asarray, st)` (or sim_state_to_numpy's dict): the
     JAX field names, with fc, beh, mapper and ekf nested.  A JAX `key`
     has no torch counterpart: the port's state draws on a new CPU
-    generator seeded with `seed`."""
+    generator seeded with `seed`.  A `gen` entry (the generator's state as
+    uint8, which a port checkpoint holds) restores the generator instead,
+    so a resumed run draws what the unbroken one would."""
     device = as_device(device)
     d = d._asdict() if hasattr(d, "_asdict") else dict(d)
+    gen = torch.Generator().manual_seed(seed)
+    if "gen" in d:
+        gen.set_state(torch.from_numpy(np.array(d["gen"], dtype=np.uint8)))
     nested = lambda v: v._asdict() if hasattr(v, "_asdict") else dict(v)  # noqa: E731
     ten = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt)).to(device)  # noqa: E731
     fc = nested(d["fc"])
@@ -340,7 +345,7 @@ def sim_state_from_numpy(d, device=None, seed: int = 0) -> SimState:
                          else np.float32) for k in FcSim._fields})
     ekf = nested(d["ekf"])
     return SimState(
-        t_ms=int(d["t_ms"]), gen=torch.Generator().manual_seed(seed),
+        t_ms=int(d["t_ms"]), gen=gen,
         fc=fc, beh=behavior_state_from_numpy(d["beh"], device),
         mapper=mapping_state_from_numpy(d["mapper"], device),
         ekf=EkfState(ten(ekf["mean"], np.float32), ten(ekf["cov"], np.float32)),
@@ -703,6 +708,40 @@ def select_lanes(tree, lanes):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(select_lanes(f, lanes) for f in tree))
     return tree
+
+
+def sim_diag_to_mavlink(diag: dict, quad: int = 0, tgt_sys: int = 1,
+                        tgt_comp: int = 1) -> bytes:
+    """Render one quad's recorded command outputs (a sim_run(record=True)
+    diag of [T, B, ...] tensors or numpy arrays) as the MAVLink byte stream
+    the reference would have written to its FC UART (heartbeat at 1 Hz like
+    send_own_heartbeat_tick, uav_local_nav.c:682); the same bytes as the
+    JAX package's sim_diag_to_mavlink on the same diag."""
+    from micro_quad_slam_tpu_torch.formats.mavlink import (
+        MavEncoder, encode_command_stream)
+
+    keys = ("t_ms", "req_mode", "req_arm", "req_takeoff", "cmd_kind", "cmd",
+            "rc_release")
+    host = {k: (diag[k].detach().cpu().numpy() if torch.is_tensor(diag[k])
+                else np.asarray(diag[k]))[:, quad] for k in keys}
+    enc = MavEncoder()
+    buf = b""
+    last_hb = -10 ** 9
+    for k in range(host["t_ms"].shape[0]):
+        t = int(host["t_ms"][k])
+        hb_due = t - last_hb >= 1000
+        if hb_due:
+            last_hb = t
+        out = {
+            "req_mode": int(host["req_mode"][k]),
+            "req_arm": int(host["req_arm"][k]),
+            "req_takeoff": float(host["req_takeoff"][k]),
+            "cmd_kind": int(host["cmd_kind"][k]),
+            "cmd": host["cmd"][k],
+            "rc_release": bool(host["rc_release"][k]),
+        }
+        buf += encode_command_stream(enc, t, out, tgt_sys, tgt_comp, hb_due)
+    return buf
 
 
 def sim_diag_to_scanlogs(diag: dict) -> list:

@@ -40,6 +40,14 @@ Beside the flights, reference results of the JAX package's replay
                            inputs under `in_`) with the trimmed profile of
                            tests/test_slam.py::test_slam_small_end_to_end,
                            kf_every 10, gn_iters 4, stage by stage
+    wire_ref               its live-topology replay of wire_capture()
+                           (the first SLAM bench flight as a dual-UART
+                           capture): the logical grids [500, 500] of
+                           replay_wirecap with kernel="xla" (`exact_grid`)
+                           and "hybrid" (`hybrid_grid`), and its UL
+                           slam_replay of the capture's frames [1, 256]:
+                           `slam_track`, `slam_odo_track`, `slam_kf_nodes`
+                           and the grid's `slam_sums`, `slam_weighted`
     swarm_small_jax        its closed-loop simulator on bench.py's swarm
                            configuration (bench.py:45-81) cut to B=8:
                            the start state sim_init(8, PRNGKey(0),
@@ -77,7 +85,8 @@ import numpy as np
 NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
          "golden_short_beams", "bench_flight", "slam_bench_flights")
 REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
-              "slam_stages", "swarm_small_jax", "swarm_bench_ref")
+              "slam_stages", "swarm_small_jax", "swarm_bench_ref",
+              "wire_ref")
 
 # bench.py's swarm workload (bench.py:45-81): world, start and run
 SWARM_WORLD = {"room": (-3.5, -3.5, 3.5, 3.5),
@@ -119,12 +128,24 @@ def grid_sums(grids: np.ndarray) -> dict:
     return {"sums": g.sum(axis=1), "weighted": g @ w}
 
 
-def bench_frames(B: int = 1024) -> dict:
-    """bench.py's replay workload (bench.py:191-202): its base flight
-    replicated B times with per-flight pose jitter from rng seed 1."""
+def bench_frames(B: int = 1024, T: int = 256) -> dict:
+    """bench.py's replay workload (bench.py:184-202): its hover flight
+    replicated B times with per-flight pose jitter from rng seed 1.  The
+    committed bench_flight at T=256; at another T the port's synthio
+    builds the same flight (bench.py's arguments), whose first frames are
+    the committed one's."""
     base, _ = load("bench_flight")
+    if T == base["x_m"].shape[1]:
+        base = {k: v[0] for k, v in base.items()}
+    else:
+        from micro_quad_slam_tpu_torch.replay.mapping import scanlog_to_arrays
+        from micro_quad_slam_tpu_torch.sim.synthio import synth_room_scanlog
+
+        base = scanlog_to_arrays(synth_room_scanlog(
+            n_frames=T, seed=0, path="hover", yaw_rate_dps=20.0,
+            noise_mm=5.0))
     rng = np.random.default_rng(1)
-    frames = {k: np.broadcast_to(v[0], (B,) + v.shape[1:]).copy()
+    frames = {k: np.broadcast_to(v, (B,) + v.shape).copy()
               for k, v in base.items()}
     frames["x_m"] = frames["x_m"] + rng.normal(0, 0.3, (B, 1)).astype(np.float32)
     frames["y_m"] = frames["y_m"] + rng.normal(0, 0.3, (B, 1)).astype(np.float32)
@@ -136,18 +157,40 @@ def bench_frames(B: int = 1024) -> dict:
 
 def slam_bench_frames(B: int, T: int = 256, device=None) -> dict:
     """bench.py's SLAM and EKF workload (sim/synthio.py::slam_bench_frames):
-    the 4 distinct slam_bench_flights replicated to B flights, as tensors
-    on `device` (replay/mapping.py::frames_to_torch: the CUDA device unless
-    told otherwise).  Only their committed length, T=256, is available."""
+    the 4 distinct circle flights replicated to B flights, as tensors on
+    `device` (replay/mapping.py::frames_to_torch: the CUDA device unless
+    told otherwise).  The committed slam_bench_flights at T=256; at
+    another T the port's synthio builds them."""
     from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
 
     base, _ = load("slam_bench_flights")
     if T != base["x_m"].shape[1]:
-        raise ValueError(f"the SLAM bench flights hold {base['x_m'].shape[1]} "
-                         f"frames, not {T}")
+        from micro_quad_slam_tpu_torch.sim.synthio import (
+            slam_bench_frames as synth_slam_bench_frames)
+
+        return synth_slam_bench_frames(B, T, device=device)
     nrep = -(-B // 4)
     return frames_to_torch({k: np.concatenate([v] * nrep)[:B]
                             for k, v in base.items()}, device)
+
+
+def wire_flight():
+    """The first SLAM bench flight (slam_bench_flights' flight 0: a circle
+    with flow, 6 mm noise, seed 0, T=256) as a ScanLog, made by the port's
+    synthio (byte-equal to the JAX package's)."""
+    from micro_quad_slam_tpu_torch.sim.synthio import synth_room_scanlog
+
+    return synth_room_scanlog(n_frames=256, seed=0, path="circle",
+                              noise_mm=6.0, with_flow=True)
+
+
+def wire_capture() -> list:
+    """wire_flight() as the dual-UART capture that would have produced it
+    (replay/livestream.py::scanlog_to_wirecap, MAVLink v1): (channel, t_ms,
+    payload) records, the wire_ref reference's input."""
+    from micro_quad_slam_tpu_torch.replay.livestream import scanlog_to_wirecap
+
+    return scanlog_to_wirecap(wire_flight())
 
 
 def _unflatten(flat: dict) -> dict:
@@ -181,17 +224,16 @@ def swarm_small(device=None):
     return world, st, draws, ref
 
 
-def swarm_bench(lanes=None, device=None):
+def swarm_bench(lanes=None, device=None, B: int = SWARM_B):
     """The port's bench swarm: (world, start state, draws) of B=1024 quads
-    from sim_init(1024, seed 0, spread_m=0.5, airborne=True), on `device`
-    (the CUDA device unless told otherwise).  With `lanes`, only those
-    quads, and draws holds their part of the 10 scan ticks' draws on the
-    start state's generator (the whole swarm's run draws them itself:
+    (or `B`) from sim_init(B, seed 0, spread_m=0.5, airborne=True), on
+    `device` (the CUDA device unless told otherwise).  With `lanes`, only
+    those quads, and draws holds their part of the 10 scan ticks' draws on
+    the start state's generator (the whole swarm's run draws them itself:
     draws is None)."""
     from micro_quad_slam_tpu_torch.models.simulator import (
         fork_generator, make_world, scan_draws, select_lanes, sim_init)
 
-    B = SWARM_B
     st = sim_init(B, 0, spread_m=0.5, airborne=True, device=device)
     world = make_world(B, **SWARM_WORLD, device=st.x.device)
     if lanes is None:

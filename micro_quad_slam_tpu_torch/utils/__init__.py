@@ -1,1 +1,2 @@
-"""Utilities of the PyTorch port: its own copy of the configuration."""
+"""Utilities of the PyTorch port: its own copy of the configuration,
+observability helpers and checkpoints."""

@@ -76,9 +76,18 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+NEW_MODULES = ("bench.py", "utils/checkpoint.py", "formats/mavlink.py",
+               "formats/scanframe.py", "formats/wirecap.py",
+               "formats/navlog.py", "formats/armlink.py",
+               "replay/telemetry.py", "replay/livestream.py",
+               "sim/synthio.py", "utils/obs.py", "__main__.py")
+
+
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = sorted(PORT_DIR.rglob("*.py"))
     assert len(files) >= 15
+    scanned = {str(f.relative_to(PORT_DIR)) for f in files}
+    assert set(NEW_MODULES) <= scanned
     bad = [(str(f.relative_to(PORT_DIR)), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "micro_quad_slam_tpu")]
@@ -117,8 +126,72 @@ def test_port_imports_and_replays_without_jax(tmp_path):
         st = sim.sim_init(2, airborne=True, device="cpu")
         st, _ = sim.sim_run(st, w, 10, port.UL_PROFILE, vision_flow=True)
         assert st.scan_count == 2 and int(st.mapper.grid.ne(0).sum()) > 50
+        from micro_quad_slam_tpu_torch import bench, formats
+        from micro_quad_slam_tpu_torch.__main__ import main
+        from micro_quad_slam_tpu_torch.formats import armlink, mavlink
+        from micro_quad_slam_tpu_torch.replay import livestream
+        from micro_quad_slam_tpu_torch.sim import synth_room_scanlog
+        from micro_quad_slam_tpu_torch.utils import checkpoint, obs
+        log = synth_room_scanlog(n_frames=6, seed=1, with_flow=True)
+        cap = livestream.scanlog_to_wirecap(log, mav_version=2)
+        st, _, n = livestream.replay_wirecap(cap, kernel="residentx",
+                                             device="cpu")
+        assert n == 6 and int(st.grid.ne(0).sum()) > 10
+        assert list(mavlink.decode_mavlink_stream(cap[0][2]))
+        assert armlink.decode_arm_msg(armlink.encode_arm_msg(1, 2, 3))
+        p = checkpoint.save_checkpoint(
+            "ck", port.mapping_state_to_numpy(port.mapping_init(1, device="cpu")))
+        assert set(checkpoint.restore_checkpoint(p)) >= {"grid", "filt"}
+        assert obs.map_divergence(st.grid, st.grid)["iou_free"] == 1.0
+        import contextlib, io, json
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(["info"]) == 0
+        assert json.loads(out.getvalue())["backend"] in ("cuda", "cpu")
+        assert formats.NavlogWriter and bench.run
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "micro_quad_slam_tpu"))
+        assert not loaded, loaded
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=tmp_path,
+                          env={**os.environ, "PYTHONPATH": ":".join(sys.path)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_restoring_a_jax_checkpoint_imports_no_jax(tmp_path, monkeypatch):
+    """A JAX MappingState and SimState pickle restored by the port in a
+    fresh interpreter: the unpickler maps the JAX classes to field dicts
+    and imports neither jax nor the JAX package."""
+    import jax
+
+    from micro_quad_slam_tpu.models import simulator as jsim
+    from micro_quad_slam_tpu.replay import mapping as jm
+    from micro_quad_slam_tpu.utils import checkpoint as jck
+
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)   # pickles
+    jck.save_checkpoint(str(tmp_path / "map"), jm.mapping_init(2), step=3)
+    jck.save_checkpoint(str(tmp_path / "sim"), jsim.sim_init(
+        2, jax.random.PRNGKey(1), airborne=True), step=4)
+    code = textwrap.dedent("""
+        import sys
+        from micro_quad_slam_tpu_torch.utils.checkpoint import (
+            latest_checkpoint, restore_checkpoint)
+        from micro_quad_slam_tpu_torch.models.simulator import (
+            sim_state_from_numpy)
+        import micro_quad_slam_tpu_torch as port
+        m = restore_checkpoint(latest_checkpoint("map"))
+        st = port.mapping_state_from_numpy(m, "cpu")
+        assert st.grid.shape == (2, 608, 640)
+        s = restore_checkpoint(latest_checkpoint("sim"))
+        assert sorted(s["mapper"]) == sorted(port.MappingState._fields)
+        sim = sim_state_from_numpy(s, "cpu", seed=3)
+        assert bool(sim.mapper.inited.all()) and sim.t_ms == 0
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "micro_quad_slam_tpu"))
         assert not loaded, loaded
         print("ok")
     """)

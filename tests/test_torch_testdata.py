@@ -290,6 +290,27 @@ def swarm_small_jax() -> dict:
             "ekf_mean": np.asarray(fin.ekf.mean)}
 
 
+def wire_ref() -> dict:
+    """The JAX package's live-topology replay and SLAM of the committed
+    wire capture (testdata.wire_capture), on the CPU."""
+    from micro_quad_slam_tpu.replay.livestream import (replay_wirecap,
+                                                       wirecap_to_frames)
+
+    cap = testdata.wire_capture()
+    out = {}
+    for kernel, key in (("xla", "exact_grid"), ("hybrid", "hybrid_grid")):
+        st, _, _ = replay_wirecap(cap, JAX_UL, kernel=kernel)
+        grid = torch.from_numpy(np.asarray(st.grid).copy())
+        out[key] = port.logical_grid(grid).contiguous().numpy()
+    frames = {k: v[None] for k, v in wirecap_to_frames(cap).items()}
+    res = _jax_slam(frames, JAX_UL)
+    sums = testdata.grid_sums(res.grid)
+    out.update(slam_track=res.track, slam_odo_track=res.odo_track,
+               slam_kf_nodes=res.kf_nodes, slam_sums=sums["sums"],
+               slam_weighted=sums["weighted"])
+    return out
+
+
 def swarm_bench_ref() -> dict:
     """The port's own CPU run of the whole bench swarm (minutes, ~1 GB)."""
     return testdata.swarm_bench_result("cpu")
@@ -401,14 +422,14 @@ def test_hybrid_references_equal_the_port_on_the_cpu():
 
 def test_slam_bench_frames_equal_sim():
     """testdata.slam_bench_frames against sim/synthio.py::slam_bench_frames
-    at B=10 (two full replications and a partial one)."""
-    want = jax_slam_bench_frames(10, 256, device_put=False)
-    got = testdata.slam_bench_frames(10, device="cpu")
-    assert set(got) == set(want)
-    for k, v in want.items():
-        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-    with pytest.raises(ValueError, match="256"):
-        testdata.slam_bench_frames(4, 128, device="cpu")
+    at B=10 (two full replications and a partial one): the committed
+    flights at T=256, and the port's synthio at another T."""
+    for B, T in ((10, 256), (6, 40)):
+        want = jax_slam_bench_frames(B, T, device_put=False)
+        got = testdata.slam_bench_frames(B, T, device="cpu")
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
 
 
 def test_slam_stage_inputs_and_odometry_equal_jax_now():
@@ -457,8 +478,36 @@ def test_swarm_bench_ref_equals_the_port_now(lanes):
     np.testing.assert_array_equal(got, ref["sums"][lanes])
 
 
+def test_wire_ref_grids_equal_jax_and_the_port_now():
+    """The stored wire replay grids against the JAX package's replay of
+    the capture now, and the port's (its kernels' plain versions on the
+    CPU); the capture's flight is the first SLAM bench flight.  The SLAM
+    part is re-derived by the slow test below."""
+    from micro_quad_slam_tpu.replay.livestream import replay_wirecap
+    from micro_quad_slam_tpu_torch.replay import livestream as tls
+
+    ref = testdata.reference("wire_ref")
+    flight = {**port.scanlog_to_arrays(testdata.wire_flight())}
+    committed, _ = testdata.load("slam_bench_flights")
+    for k, v in flight.items():
+        np.testing.assert_array_equal(v, committed[k][0], err_msg=k)
+    cap = testdata.wire_capture()
+    for jkernel, kernel, key in (("xla", "residentx", "exact_grid"),
+                                 ("hybrid", "hybridx", "hybrid_grid")):
+        st, _, n = replay_wirecap(cap, JAX_UL, kernel=jkernel)
+        want = port.logical_grid(torch.from_numpy(np.asarray(st.grid).copy()))
+        np.testing.assert_array_equal(ref[key], want.numpy(), err_msg=key)
+        tst, _, tn = tls.replay_wirecap(cap, port.UL_PROFILE, kernel=kernel,
+                                        device="cpu")
+        assert n == tn == 256
+        np.testing.assert_array_equal(port.logical_grid(tst.grid).numpy(),
+                                      ref[key], err_msg=kernel)
+    assert (ref["exact_grid"] > 10).sum() > 100
+
+
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["slam_stages", "slam_bench_ref"])
+@pytest.mark.parametrize("name", ["slam_stages", "slam_bench_ref",
+                                  "wire_ref"])
 def test_slam_references_equal_jax_now(name):
     want = build(name)
     got = testdata.reference(name)
