@@ -82,7 +82,28 @@ failure; nothing falls back to the CPU.  Phases:
      (checksum -239317596), the B=1024 bench swarm run 100 + 100 ticks
      around a checkpoint against 200 unbroken ticks (every field, every
      quad), and `python -m micro_quad_slam_tpu_torch replay --wirecap`
-     as a subprocess.
+     as a subprocess;
+ 10. pass 1's feedback formulations (slam/pipeline.py::_map_pass_fb):
+     slam_chunked_vs_sequential, the port's chunked pass on the card on
+     the recentering flight of tests/test_slam.py:593 against the JAX
+     package's sequential pass (grids equal, poses within 1e-6); then
+     slam_replay with match_feedback=True and with match_map_kf_only=False
+     at full width (the 4 SLAM bench flights replicated to B=128, T=256):
+     pass 1 alone equal to the JAX package's sequential pass, the
+     launches counted against the pipeline's loops (match_lattice 29,
+     replay_exact 22, the snapshot entry none), each run bit-equal to its
+     twin with the kernels' plain versions on the card, and against the
+     JAX package's CPU run (slam_fb_ref) within the SLAM tolerances on
+     all 4 flights, grid sums equal, with frames/s and seconds per stage;
+ 11. the sharded entries (parallel/mesh.py) over ["cuda:0", "cuda:0"]
+     (a repeated device, not a second card), each equal to the unsharded
+     run: the bench replay through residentx and hybridx (checksums
+     -239317596 and -401735680), the dry run's recentering case, the EKF
+     at B=1024, the UL SLAM at B=128 and 100 ticks of the bench swarm;
+ 12. the CL behaviour machine (models/behavior_cl.py) at B=1024 on the
+     committed fuzzed schedules, equal to its CPU run;
+ 13. the native scanlog reader (io/native.py): built with g++ and equal
+     to the Python reader on the SLAM bench flight.
 
 The bench phases take their end-to-end times from the port's bench entry
 (micro_quad_slam_tpu_torch/bench.py), so each workload is timed once.
@@ -1353,8 +1374,8 @@ def _slam_kernels_alone(frames, cfg, smi: str, busy: dict) -> dict:
 
 # the SLAM stages' functions, timed by _stage_seconds
 STAGES = {"pass0": sp._odo_and_schedule, "pass1": sp._map_pass_nofb,
-          "loop": sp._loop_stage, "gn": sp._build_and_solve,
-          "pass3": rx.map_chunk_sched}
+          "pass1_fb": sp._map_pass_fb, "loop": sp._loop_stage,
+          "gn": sp._build_and_solve, "pass3": rx.map_chunk_sched}
 
 
 def _stage_seconds(frames, cfg, reps: int = 3) -> dict:
@@ -1363,19 +1384,26 @@ def _stage_seconds(frames, cfg, reps: int = 3) -> dict:
     fastest of `reps` replays.  Python's sys.monitoring reports each call
     of a STAGES function and its return, and the card is synchronised at
     both, so a stage's device work counts in it; the pipeline carries no
-    timing hook."""
+    timing hook.  A stage called inside another (the feedback pass 1
+    lands its chunks through map_chunk_sched) counts in the outer one."""
     mon = sys.monitoring
     tool = mon.PROFILER_ID
     names = {fn.__code__: name for name, fn in STAGES.items()}
-    started, secs = {}, {}
+    active, secs = [], {}                 # stack of (code, start) | None
 
     def on_start(code, _offset):
+        if active:
+            active.append(None)
+            return
         torch.cuda.synchronize()
-        started[code] = time.perf_counter()
+        active.append((code, time.perf_counter()))
 
     def on_return(code, _offset, _value):
+        entry = active.pop()
+        if entry is None:
+            return
         torch.cuda.synchronize()
-        dt = time.perf_counter() - started.pop(code)
+        dt = time.perf_counter() - entry[1]
         secs[names[code]] = secs.get(names[code], 0.0) + dt
 
     mon.use_tool_id(tool, "chip_smoke")
@@ -1388,6 +1416,7 @@ def _stage_seconds(frames, cfg, reps: int = 3) -> dict:
     try:
         for _ in range(reps):
             secs.clear()
+            active.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sp.slam_replay(frames, cfg)
@@ -1975,6 +2004,319 @@ def phase_wire(device, smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# pass 1's feedback formulations (tests/test_torch_testdata.py FB_FORMS)
+FB_FORMS = {"fb": {"match_feedback": True},
+            "all": {"match_map_kf_only": False}}
+FB_POSE_TOL = 1e-6    # the feedback pass on the recentering flight
+# A feedback run carries each keyframe's correction into the map that
+# later keyframes match, so an ulp apart can move a lattice peak or a ray's
+# cell and part a flight by centimetres (ROADMAP section C).  Every float
+# step of the SLAM path rounds on the card as on the CPU (division by a
+# tensor, the pose graph's chained normal equations, correctly rounded
+# sqrt), and the CPU run agrees with the JAX package's on every bench
+# flight (tests/test_torch_slam_feedback.py), so the card's run must too.
+SLAM_TOL = {"odo_track": 1e-5, "kf_nodes": 1e-4, "track": 1e-4}
+
+
+def _formulation(cfg, form: str, **extra):
+    import dataclasses
+
+    return dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, **FB_FORMS[form], **extra))
+
+
+def _fb_launches(T: int, cfg) -> dict:
+    """The feedback SLAM's kernel launches, from the pipeline's loops:
+    pass 1 launches the lattice kernel and the exact kernel once per chunk
+    of match_chunk_intervals keyframe intervals in each of slam_outer
+    rounds, and pass 3 the exact kernel once; the loop stage launches the
+    lattice kernel once, and once per refine round (loop_refine_early in
+    the rounds before the last, loop_refine in the last)."""
+    s = cfg.slam
+    chunks = -(-T // (s.kf_every * max(int(s.match_chunk_intervals), 1)))
+    rounds = max(int(s.slam_outer), 1)
+    early = (s.loop_refine_early if int(s.loop_refine_early) >= 0
+             else s.loop_refine)
+    loop = (rounds - 1) * (1 + max(int(early), 0)) + 1 + max(
+        int(s.loop_refine), 0)
+    return {"match_lattice": chunks * rounds + loop,
+            "replay_exact": chunks * rounds + 1}
+
+
+class _PlainKernels:
+    """Within the block, the SLAM path's kernel wrappers run their plain
+    versions on the card (the pipeline reaches them through these module
+    names): the twin run of phase_slam_feedback."""
+
+    def __enter__(self):
+        self.saved = (sm.match_lattice, rx.replay_exact)
+        sm.match_lattice = ml.match_lattice_plain
+        rx.replay_exact = rx.replay_exact_plain
+
+    def __exit__(self, *exc):
+        sm.match_lattice, rx.replay_exact = self.saved
+
+
+def _fb_vs_ref(res, ref: dict, form: str) -> dict:
+    """A feedback SLAM run of the 4 bench flights replicated to B against
+    the JAX package's CPU run of them (slam_fb_ref): every replica within
+    SLAM_TOL, every grid sum and weighted sum equal."""
+    B = res.grid.shape[0]
+    tile = lambda a: np.concatenate([a] * (B // 4))                  # noqa: E731
+    errs = {k: float(np.abs(getattr(res, k).cpu().numpy().astype(np.float64)
+                            - tile(ref[f"{form}_{k}"])).max())
+            for k in SLAM_TOL}
+    sums = testdata.grid_sums(res.grid.cpu().numpy())
+    for k, tol in SLAM_TOL.items():
+        check(errs[k] <= tol, f"slam {form}: {k} off the JAX package's by "
+                              f"{errs[k]}")
+    for k in ("sums", "weighted"):
+        diff = np.nonzero(sums[k] != tile(ref[f"{form}_{k}"]))[0]
+        check(diff.size == 0, f"slam {form}: grid {k} differ from the JAX "
+                              f"package's in replicas {diff.tolist()}")
+    return {"max_abs_err": errs, "grid_sums": sums["sums"][:4].tolist(),
+            "grid_sums_equal_jax": True}
+
+
+def _fb_pass1(frames: dict, ref: dict, form: str) -> dict:
+    """slam_replay's first pass 1 alone at the frames' width, fed the JAX
+    package's odometry and schedule of the 4 bench flights replicated
+    (slam_fb_ref pass1_*): every grid equal to the JAX package's
+    sequential pass, matched poses within FB_POSE_TOL; one lattice and
+    one exact-kernel launch per chunk."""
+    from micro_quad_slam_tpu_torch.ops.beams import extract_beams
+
+    B, T = frames["x_m"].shape
+    cfg = _formulation(UL_PROFILE, form)
+    dev = frames["x_m"].device
+    tile = lambda a: torch.from_numpy(                               # noqa: E731
+        np.concatenate([a] * (B // 4))).to(dev)
+    beams, _ = extract_beams(frames["grid_mm"], cfg.tof)
+    sched = {k[12:]: tile(v) for k, v in ref.items()
+             if k.startswith("pass1_sched_")}
+    torch.cuda.synchronize()
+    reset_launches()
+    grid, matched = sp._map_pass_fb(beams, tile(ref["pass1_odo"]), cfg,
+                                    GEOM, cfg.slam.kf_every, sched)
+    chunks = -(-T // (cfg.slam.kf_every * cfg.slam.match_chunk_intervals))
+    counts = _path_launches({"match_lattice": chunks,
+                             "replay_exact": chunks}, f"the {form} pass 1")
+    cells = int((grid != tile(ref[f"pass1_{form}_grid"])).sum())
+    err = float((matched - tile(ref[f"pass1_{form}_matched"])).abs().max())
+    check(cells == 0, f"pass 1 {form}: {cells} cells differ")
+    check(err <= FB_POSE_TOL, f"pass 1 {form}: poses off by {err}")
+    return {"cells_differing": cells, "max_abs_err": err,
+            "launches": counts}
+
+
+def phase_slam_feedback(device, smi: str, B: int = 128, T: int = 256,
+                        reps: int = 2) -> None:
+    """slam_replay with pass 1's feedback formulations at full width (the
+    4 SLAM bench flights replicated to B=128, T=256, UL profile):
+    match_feedback=True, then match_map_kf_only=False.  Its first pass 1
+    alone equals the JAX package's sequential pass (_fb_pass1).  Each
+    run's launches are counted (zeroed just before, read just after) and
+    held to _fb_launches; each is bit-equal to the same run with the
+    kernels' plain versions on the card, and agrees with the JAX
+    package's CPU run on every flight (slam_fb_ref, _fb_vs_ref); then
+    `reps` timed runs give frames/s, and one more the seconds per
+    stage."""
+    ref = testdata.reference("slam_fb_ref")
+    frames = testdata.slam_bench_frames(B, T, device=device)
+    for form in FB_FORMS:
+        cfg = _formulation(UL_PROFILE, form)
+        pass1 = _fb_pass1(frames, ref, form)
+        want = _fb_launches(T, cfg)
+        torch.cuda.synchronize()
+        reset_launches()                  # count this slam_replay only
+        res = sp.slam_replay(frames, cfg)
+        counts = _path_launches(want, f"the {form} slam_replay")
+        with _PlainKernels():
+            plain = sp.slam_replay(frames, cfg)
+        torch.cuda.synchronize()
+        same = {k: bool(torch.equal(getattr(res, k), getattr(plain, k)))
+                for k in ("grid", "track", "kf_nodes", "odo_track")}
+        check(all(same.values()), f"slam {form}: kernels vs plain {same}")
+        vs = _fb_vs_ref(res, ref, form)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp.slam_replay(frames, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        say("slam_feedback", formulation=form, B=B, T=T, pass1=pass1,
+            launches=counts, launches_expected=want,
+            kernels_equal_plain=same, **vs, rep_seconds=times,
+            frames_per_s=B * T / min(times),
+            stage_seconds=_stage_seconds(frames, cfg, reps=1), card=smi)
+
+
+def phase_slam_chunked_vs_sequential(device) -> None:
+    """TPUCHECK's slam_chunked_vs_sequential on the card: the port's
+    feedback pass (one lattice and one exact-kernel launch per chunk) on
+    the recentering flight of tests/test_slam.py:593 (B=4, T=64,
+    kf_every 8, a -20 flow excursion; gate 0.05), fed the JAX package's
+    odometry and schedule, against its sequential pass (slam_fb_ref
+    rc_*): grids equal, matched poses within FB_POSE_TOL."""
+    from micro_quad_slam_tpu_torch.ops.beams import extract_beams
+
+    ref = testdata.reference("slam_fb_ref")
+    frames = port.frames_to_torch({k[6:]: v for k, v in ref.items()
+                                   if k.startswith("rc_in_")}, device)
+    odo = torch.from_numpy(ref["rc_odo"]).to(device)
+    sched = {k[9:]: torch.from_numpy(v).to(device) for k, v in ref.items()
+             if k.startswith("rc_sched_")}
+    check(int(sched["do"].sum()) >= 1, "the recentering flight recenters")
+    out = {}
+    for form in FB_FORMS:
+        cfg = _formulation(UL_PROFILE, form, match_min_quality=0.05)
+        beams, _ = extract_beams(frames["grid_mm"], cfg.tof)
+        torch.cuda.synchronize()
+        reset_launches()
+        grid, matched = sp._map_pass_fb(beams, odo, cfg, GEOM, 8, sched)
+        chunks = -(-odo.shape[1] // (8 * cfg.slam.match_chunk_intervals))
+        counts = _path_launches({"match_lattice": chunks,
+                                 "replay_exact": chunks},
+                                f"the {form} feedback pass")
+        cells = int((grid.cpu().numpy() != ref[f"rc_{form}_grid"]).sum())
+        err = float(np.abs(matched.cpu().numpy()
+                           - ref[f"rc_{form}_matched"]).max())
+        check(cells == 0, f"chunked {form}: {cells} cells differ")
+        check(err <= FB_POSE_TOL, f"chunked {form}: poses off by {err}")
+        out[form] = {"cells_differing": cells, "max_abs_err": err,
+                     "launches": counts}
+    say("slam_chunked_vs_sequential", recenters=int(sched["do"].sum()),
+        tolerance=FB_POSE_TOL, **out)
+
+
+def phase_sharded(device, smi: str, swarm_ticks: int = 100, B: int = 1024,
+                  slam_B: int = 128) -> None:
+    """The sharded entries (parallel/mesh.py) over ["cuda:0", "cuda:0"]:
+    one card shows the split only with a repeated device, not two cards
+    at once.  Each against the unsharded run, bit for bit: the bench
+    replay (B=1024 x T=256) through residentx and hybridx with their
+    checksums, the dry run's recentering case, the EKF fusion at B=1024,
+    the UL SLAM at B=128 and the bench swarm for `swarm_ticks` ticks
+    (every quad, and the generator's state)."""
+    from micro_quad_slam_tpu_torch.parallel import dryrun, mesh
+    from micro_quad_slam_tpu_torch.replay.fusion import replay_fusion_batched
+
+    devices = [device, device]
+    out = {}
+    frames = testdata.bench_frames(B, 256)
+    for kernel in ("residentx", "hybridx"):
+        t0 = time.perf_counter()
+        st, outs, metrics = mesh.replay_mapping_sharded(
+            frames, UL_PROFILE, devices, kernel=kernel)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st_un, outs_un = replay(frames, device, kernel)
+        dryrun._equal((st, outs), (st_un, outs_un), f"sharded {kernel}")
+        ck = checksum(st.grid)
+        want = CHECKSUM_REF["residentx_off_tpu" if kernel == "residentx"
+                            else "hybridx"]
+        check(ck == want or B != 1024,
+              f"sharded {kernel} checksum {ck} != {want}")
+        out[kernel] = {"checksum": ck, "seconds": secs,
+                       "frames_used": int(metrics["frames_used"])}
+    out["recentering"] = dryrun.recentering_case(devices)
+    sb = testdata.slam_bench_frames(B, device="cpu")
+    got = mesh.replay_fusion_sharded(sb, UL_PROFILE, devices)
+    dryrun._equal(got, replay_fusion_batched(
+        port.frames_to_torch({k: v.numpy() for k, v in sb.items()}, device),
+        UL_PROFILE), "sharded fusion")
+    s128 = {k: v[:slam_B] for k, v in sb.items()}
+    got = mesh.slam_replay_sharded(s128, UL_PROFILE, devices)
+    want = sp.slam_replay(port.frames_to_torch(
+        {k: v.numpy() for k, v in s128.items()}, device), UL_PROFILE)
+    dryrun._equal(got, want, "sharded slam")
+    out["slam"] = {"B": slam_B, "bit_equal": True}
+    world, st0, _ = testdata.swarm_bench(device=device, B=B)
+    t0 = time.perf_counter()
+    fin, diag = mesh.sim_run_sharded(st0, world, swarm_ticks, UL_PROFILE,
+                                     devices, **testdata.SWARM_RUN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want, wdiag = sim.sim_run(st0, world, swarm_ticks, UL_PROFILE,
+                              **testdata.SWARM_RUN)
+    dryrun._equal((fin._replace(gen=None), diag),
+                  (want._replace(gen=None), wdiag), "sharded swarm")
+    check(torch.equal(fin.gen.get_state(), want.gen.get_state()),
+          "sharded swarm: the generator's state")
+    out["swarm"] = {"B": int(st0.x.shape[0]), "ticks": swarm_ticks,
+                    "scan_ticks": fin.scan_count, "seconds": secs}
+    say("sharded", devices=[str(d) for d in devices], fusion_B=B, **out,
+        card=smi)
+
+
+def phase_behavior_cl(device, B: int = 1024) -> None:
+    """The CL machine (models/behavior_cl.py, no kernel) on the card: B
+    quads on the committed fuzzed schedules (cl_fuzz_telemetry tiled),
+    every output of every tick equal to the same run on the CPU."""
+    from micro_quad_slam_tpu_torch.models import behavior_cl as bcl
+
+    def run(dev):
+        tm = testdata.cl_fuzz(B, dev)
+        st = bcl.behavior_cl_init(B, dev)
+        outs = []
+        t0 = time.perf_counter()
+        for i in range(tm["t_ms"].shape[0]):
+            st, o = bcl.behavior_step_cl(st, {k: v[i] for k, v in
+                                              tm.items()}, port.CL_PROFILE)
+            outs.append(o)
+        got = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+               for k in outs[0]}
+        return got, st, time.perf_counter() - t0
+
+    got, st, secs = run(device)
+    want, st_cpu, cpu_secs = run(torch.device("cpu"))
+    differ = [k for k in want if not np.array_equal(got[k], want[k],
+                                                     equal_nan=True)]
+    differ += [f"state.{k}" for k, v in st_cpu._asdict().items()
+               if not np.array_equal(getattr(st, k).cpu().numpy(),
+                                     v.numpy(), equal_nan=True)]
+    check(not differ, f"behavior_cl on the card differs from the CPU: "
+                      f"{differ}")
+    states = np.unique(got["state"]).tolist()
+    check(len(states) >= 5, f"the fuzzed schedules reach {states}")
+    say("behavior_cl", B=B, ticks=int(got["state"].shape[0]),
+        equal_cpu=True, states_reached=states, card_seconds=secs,
+        cpu_seconds=cpu_secs)
+
+
+def phase_native_io(tmp_dir: Path) -> None:
+    """The native scanlog reader (io/native.py) builds with this machine's
+    g++ and reads the SLAM bench flight equal, field by field, to the
+    Python reader; no give-way to the Python codec here."""
+    import dataclasses
+
+    from micro_quad_slam_tpu_torch.formats.scanlog import (
+        read_scanlog, write_scanlog)
+    from micro_quad_slam_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    ok = native.native_available()
+    build_s = time.perf_counter() - t0
+    check(ok, "the native scanlog reader did not build (g++)")
+    log_path = tmp_dir / "bench_flight.bin"
+    write_scanlog(str(log_path), testdata.wire_flight())
+    t0 = time.perf_counter()
+    got = native.read_scanlog_native(str(log_path))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = read_scanlog(str(log_path))
+    python_s = time.perf_counter() - t0
+    fields = [f.name for f in dataclasses.fields(want)]
+    differ = [k for k in fields
+              if not np.array_equal(getattr(got, k), getattr(want, k))
+              or getattr(got, k).dtype != getattr(want, k).dtype]
+    check(not differ and len(got) == 256, f"native read differs: {differ}")
+    say("native_io", native_available=True, library=str(
+        native._library_path().name), build_s=build_s, records=len(got),
+        equal_python=True, native_read_s=native_s, python_read_s=python_s)
+
+
 def _jax_package_loaded() -> list:
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -1998,6 +2340,13 @@ def main() -> int:
     phase_slam_vs_jax(device)
     phase_swarm_vs_jax(device)
     phase_wire(device, smi)
+    phase_slam_chunked_vs_sequential(device)
+    phase_slam_feedback(device, smi)
+    phase_sharded(device, smi)
+    phase_behavior_cl(device)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    phase_native_io(build)
     kernels = [phase_bench(device, smi, "residentx"),
                phase_bench(device, smi, "hybridx", plain_reps=1)]
     slam = phase_slam_bench(device, smi, "ul", 128)

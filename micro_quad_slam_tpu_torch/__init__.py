@@ -6,7 +6,7 @@ names, and never imports jax.  Each TPU kernel of a ported path becomes a
 hand-written CUDA kernel (csrc/), with the plain torch version beside it
 as its CPU path and its twin in the on-card checks.
 
-Ported so far: the batched mapping replay (replay/mapping.py) in its
+Ported: the batched mapping replay (replay/mapping.py) in its
 bit-exact mode, with beam extraction and the ToF filter (ops/beams.py),
 the exact scan update and recentering (ops/raycast.py) and the
 whole-replay schedule and Hopper kernel (ops/residentx.py,
@@ -26,7 +26,11 @@ live-topology path (formats/scanframe.py, wirecap.py, mavlink.py,
 replay/telemetry.py, replay/livestream.py: raw dual-UART captures in),
 checkpoints (utils/checkpoint.py), the navlog, PGM and MAVLink writers,
 the synthetic flight generator (sim/synthio.py), the command line
-(__main__.py) and the bench entry (bench.py).
+(__main__.py) and the bench entry (bench.py); SLAM pass 1 with match
+feedback (slam/pipeline.py), the batch split over several devices
+(parallel/mesh.py, parallel/dryrun.py), the CL behaviour machine
+(models/behavior_cl.py) and the native scanlog reader (io/native.py).
+With these the port does all that the JAX package does.
 
 The port imports nothing of the JAX package, not even its modules that
 do not import jax: it keeps its own copy of the configuration

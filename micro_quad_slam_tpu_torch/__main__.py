@@ -1,7 +1,7 @@
 """python -m micro_quad_slam_tpu_torch: command line of the PyTorch port.
 
   python -m micro_quad_slam_tpu_torch replay --log scanlog.bin [more.bin ...]
-      | --wirecap cap.bin  [--kernel xla|residentx|hybridx|...]
+      | --wirecap cap.bin  [--kernel xla|residentx|hybridx|...] [--sharded]
       [--profile ul|cl] [--save-state CK] [--resume CK] [--out map.npy]
       [--pgm map.pgm [--pgm-raw]] [--ascii] [--navlog navlog.csv]
   python -m micro_quad_slam_tpu_torch fusion --log scanlog.bin [...]
@@ -21,10 +21,13 @@
   python -m micro_quad_slam_tpu_torch info
 
 The counterparts of the JAX package's `mqs` subcommands
-(micro_quad_slam_tpu/cli.py), with the same options (but `--sharded`),
-printed lines and written files.  replay, fusion, slam, sim and bench run
-on the CUDA device; without one they exit with status 2 unless given
---device cpu.  synth and info need no device.
+(micro_quad_slam_tpu/cli.py), with the same options, printed lines and
+written files.  Scanlogs are read by the native reader
+(io/native.py) where g++ can build it, else by the Python codec.
+replay, fusion, slam, sim and bench run on the CUDA device; without one
+they exit with status 2 unless given --device cpu.  replay --sharded
+splits the logs over every visible CUDA device (parallel/mesh.py; with
+--device cpu, over the CPU once).  synth and info need no device.
 """
 
 from __future__ import annotations
@@ -88,10 +91,10 @@ def _stack_logs(paths):
     all-zero ToF grid has no valid beams, so each flight's map is
     bit-identical to its solo replay.  Returns (logs, frames, true
     lengths)."""
-    from micro_quad_slam_tpu_torch.formats.scanlog import read_scanlog
+    from micro_quad_slam_tpu_torch.io.native import read_scanlog_native
     from micro_quad_slam_tpu_torch.replay.mapping import scanlog_to_arrays
 
-    logs = [read_scanlog(p) for p in paths]
+    logs = [read_scanlog_native(p) for p in paths]
     arrs = [scanlog_to_arrays(lg) for lg in logs]
     lens = [a["x_m"].shape[0] for a in arrs]
     T = max(lens)
@@ -175,12 +178,30 @@ def cmd_replay(args) -> int:
     B = len(lens)
     state0 = None
     if args.resume:
+        if args.sharded:
+            print("--resume is not supported with --sharded",
+                  file=sys.stderr)
+            return 2
         ck, path = _restore(args.resume)
         state0 = mapping_state_from_numpy(ck, device)
         print(f"resuming from {path}")
-    state, outs = replay_mapping_batched(
-        frames_to_torch(frames, device), _profile(args.profile),
-        kernel=args.kernel, state0=state0)
+    if args.sharded:
+        from micro_quad_slam_tpu_torch.parallel import mesh
+
+        devices = mesh.make_mesh(device=device)
+        if B % len(devices):
+            print(f"--sharded needs the log count ({B}) to be a multiple "
+                  f"of the device count ({len(devices)})", file=sys.stderr)
+            return 2
+        state, outs, metrics = mesh.replay_mapping_sharded(
+            frames, _profile(args.profile), devices, kernel=args.kernel)
+        print(f"sharded over {len(devices)} devices: "
+              f"{int(metrics['frames_used'])} of "
+              f"{int(metrics['frames_total'])} frames mapped")
+    else:
+        state, outs = replay_mapping_batched(
+            frames_to_torch(frames, device), _profile(args.profile),
+            kernel=args.kernel, state0=state0)
     if args.save_state:
         from micro_quad_slam_tpu_torch.utils.checkpoint import save_checkpoint
         p = save_checkpoint(args.save_state, mapping_state_to_numpy(state),
@@ -218,11 +239,11 @@ def _equal_length_logs(paths):
     """Scanlogs of equal length -> (frames dict of [B, T] numpy arrays with
     the EKF inputs, the logs), or (None, lengths) when they differ: padded
     frames would enter the EKF and the keyframe graph."""
-    from micro_quad_slam_tpu_torch.formats.scanlog import read_scanlog
+    from micro_quad_slam_tpu_torch.io.native import read_scanlog_native
     from micro_quad_slam_tpu_torch.replay.fusion import fusion_arrays
     from micro_quad_slam_tpu_torch.replay.mapping import scanlog_to_arrays
 
-    logs = [read_scanlog(p) for p in paths]
+    logs = [read_scanlog_native(p) for p in paths]
     if len({len(lg) for lg in logs}) > 1:
         return None, [len(lg) for lg in logs]
     dicts = [{**scanlog_to_arrays(lg), **fusion_arrays(lg)} for lg in logs]
@@ -337,13 +358,9 @@ def cmd_slam(args) -> int:
         state0 = tuple(torch.from_numpy(np.asarray(v)).to(device)
                        for v in ck)
         print(f"resuming SLAM map from {path}")
-    try:
-        res = slam_replay(frames_to_torch(frames, device), cfg,
-                          kf_every=args.kf_every, gn_iters=args.gn_iters,
-                          state0=state0)
-    except NotImplementedError as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
+    res = slam_replay(frames_to_torch(frames, device), cfg,
+                      kf_every=args.kf_every, gn_iters=args.gn_iters,
+                      state0=state0)
     if args.save_state:
         from micro_quad_slam_tpu_torch.utils.checkpoint import save_checkpoint
         p = save_checkpoint(args.save_state,
@@ -478,6 +495,7 @@ def cmd_bench(args) -> int:
 
 def cmd_info(args) -> int:
     import micro_quad_slam_tpu_torch as port
+    from micro_quad_slam_tpu_torch.io.native import native_available
 
     cuda = torch.cuda.is_available()
     devices = ([str(torch.device("cuda", i))
@@ -487,7 +505,7 @@ def cmd_info(args) -> int:
         "version": port.__version__,
         "backend": "cuda" if cuda else "cpu",
         "devices": devices,
-        "native_io": False,
+        "native_io": native_available(),
         "profiles": ["ul", "cl", "ul-rt"],
     }, indent=2))
     return 0
@@ -536,6 +554,10 @@ def main(argv=None) -> int:
     _add_map_images(pr, "map")
     pr.add_argument("--navlog", help="write a reference-format navlog.csv "
                                      "of the replay (a single --log)")
+    pr.add_argument("--sharded", action="store_true",
+                    help="split the logs over every visible CUDA device "
+                         "(parallel/mesh.py; the log count must be a "
+                         "multiple of the device count); not with --resume")
     pr.add_argument("--save-state", help="checkpoint the final mapper state "
                                          "(resume a later log with --resume)")
     pr.add_argument("--resume", help="checkpoint dir/path to resume from "
@@ -565,9 +587,7 @@ def main(argv=None) -> int:
     ps.add_argument("--slam-set", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="override any SlamConfig field (repeatable), e.g. "
-                         "--slam-set match_iters=3; the port refuses "
-                         "match_feedback=true and match_map_kf_only=false "
-                         "(exit 2)")
+                         "--slam-set match_iters=3 or match_feedback=true")
     _add_map_images(ps, "corrected map")
     ps.add_argument("--track", help="write the corrected and odometry pose "
                                     "tracks as CSV")

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from micro_quad_slam_tpu_torch.ops.raycast import div_f32
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
 
 _F32 = np.float32
@@ -493,7 +494,7 @@ def behavior_step(state: BehaviorState, tm: dict,
     S["ramp_last"] = W(ramp_send, t, S["ramp_last"])
     rdt = (t - S["ramp_start"]).to(_FLT)
     u = torch.clamp(W(rdt >= bh.ramp_total_ms, 1.0,
-                      rdt / _f(float(bh.ramp_total_ms))), 0.0, 1.0)
+                      div_f32(rdt, _f(float(bh.ramp_total_ms)))), 0.0, 1.0)
     thr = (1.0 - u) * _f(bh.ramp_thr_min) + u * _f(bh.ramp_thr_max)
     ryaw = W(S["yaw_tv"], S["yaw_t"], W(tm["have_att"], tm["yaw_deg"], 0.0))
     set_cmd(ramp_send, CMD_ATT_THRUST,
@@ -540,7 +541,8 @@ def behavior_step(state: BehaviorState, tm: dict,
     S["as_last"] = W(as_send, t, S["as_last"])
     adt = (t - S["as_start"]).to(_FLT)
     au = torch.clamp(W(adt >= bh.assist_total_ms, 1.0,
-                       adt / _f(float(bh.assist_total_ms))), 0.0, 1.0)
+                       div_f32(adt, _f(float(bh.assist_total_ms)))), 0.0,
+                       1.0)
     athr = torch.round((1.0 - au) * _f(float(bh.assist_thr_us_min))
                        + au * _f(float(bh.assist_thr_us_max)))
     set_cmd(as_send, CMD_RC_OVERRIDE, 1500.0, 1500.0, athr, 1500.0)

@@ -420,7 +420,7 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
 
     # ---- scan tick: synth ToF + map update from the EKF pose estimate
     # (self-localized mapping), a host decision ----
-    scan_due = t % scan_period_ms == 0
+    scan_due = is_scan_tick(t, scan_period_ms)
     scan_cells = None
     gen = state.gen
     if scan_due:
@@ -671,6 +671,20 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     return new_state, diag
 
 
+def is_scan_tick(t_ms: int, scan_period_ms: int) -> bool:
+    """Whether the tick that ends at t_ms takes a ToF scan (and its
+    draws)."""
+    return t_ms % scan_period_ms == 0
+
+
+def scan_tick_count(t_ms: int, n_steps: int, dt_ms: int,
+                    scan_period_ms: int) -> int:
+    """The scan ticks of a run of n_steps ticks from t_ms: the draws
+    sim_run takes."""
+    return sum(is_scan_tick(t_ms + k * dt_ms, scan_period_ms)
+               for k in range(1, n_steps + 1))
+
+
 def sim_run(state: SimState, world: World, n_steps: int,
             cfg: PipelineConfig = UL_PROFILE, geom: GridGeom = DEFAULT_GEOM,
             dt_ms: int = 20, scan_period_ms: int = 100,
@@ -685,7 +699,7 @@ def sim_run(state: SimState, world: World, n_steps: int,
     diags = []
     k = 0
     for _ in range(n_steps):
-        due = (state.t_ms + dt_ms) % scan_period_ms == 0
+        due = is_scan_tick(state.t_ms + dt_ms, scan_period_ms)
         d = draws[k] if (due and draws is not None) else None
         k += int(due)
         state, diag = sim_step(state, world, cfg, geom, dt_ms, scan_period_ms,

@@ -27,7 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from micro_quad_slam_tpu_torch.ops.raycast import _cos_f32, _f, _sin_f32
+from micro_quad_slam_tpu_torch.ops.raycast import (
+    _cos_f32, _f, _sin_f32, div_f32)
 from micro_quad_slam_tpu_torch.utils.config import EkfConfig
 
 _F32 = np.float32
@@ -131,7 +132,7 @@ def _update_scalar(state: EkfState, idx: int, innov, valid, r) -> EkfState:
 def wrap_pi(a):
     """Wrap radians to [-pi, pi)."""
     two_pi = _f(2.0 * np.pi)
-    return a - two_pi * torch.floor((a + _f(np.pi)) / two_pi)
+    return a - two_pi * torch.floor(div_f32(a + _f(np.pi), two_pi))
 
 
 def ekf_update_yaw(state: EkfState, yaw_meas, valid, r_yaw) -> EkfState:

@@ -223,7 +223,9 @@ def _peak_result(scores, hit, x_guess, y_guess, yaw_guess_deg,
     dy = _subcell(scores[n, iy, ix, :], it, xy_step_m)
     nhit = hit.sum(-1)[n, iy].to(torch.float32).clamp_min(1.0)
     peak = flat[n, best]
-    quality = (peak - flat.mean(dim=1)) / nhit
+    # the mean as sum / count: CUDA's mean multiplies by 1 / count
+    mean = flat.sum(dim=1) / flat.new_full((), flat.shape[1])
+    quality = (peak - mean) / nhit
     return MatchResult(x=x_guess + dx, y=y_guess + dy,
                        yaw_deg=yaw_guess_deg + dyaw, score=peak,
                        quality=quality)

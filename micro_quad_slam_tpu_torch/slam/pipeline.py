@@ -5,12 +5,17 @@ map from the corrected track, for a [B] batch of flights.
 
   pass 0  EKF odometry and the grid's origin/recenter schedule in one
           [B]-wide loop over T (the fusion replay with a hook).
-  pass 1  the feedback-free match map: the keyframe scans land on each
-          flight's grid at fixed pose estimates through one launch of the
-          exact kernel's snapshot entry, which also copies every keyframe
-          chunk's start-of-chunk map slab; every keyframe then matches its
-          slab in one flat batch (one lattice-kernel launch).
-          SlamConfig.match_iters rounds of (rebuild, re-match).
+  pass 1  the feedback-free match map (the default): the keyframe scans
+          land on each flight's grid at fixed pose estimates through one
+          launch of the exact kernel's snapshot entry, which also copies
+          every keyframe chunk's start-of-chunk map slab; every keyframe
+          then matches its slab in one flat batch (one lattice-kernel
+          launch).  SlamConfig.match_iters rounds of (rebuild, re-match).
+          With SlamConfig.match_feedback (or match_map_kf_only=False) the
+          matches land on the map instead: chunk by chunk, a chunk's
+          keyframes match the chunk-start grid (one lattice-kernel launch)
+          and its scans land at the matched poses (one launch of the exact
+          kernel).
   loop    proximity-gated keyframe-to-keyframe revisit matches against
           endpoint fields rastered from each candidate's scan alone, all
           in one lattice-kernel launch; the best by quality become edges.
@@ -22,8 +27,7 @@ map from the corrected track, for a [B] batch of flights.
 This follows the JAX package's kernel branch (the one its tests hold
 bit-equal to its XLA branch); the device of the tensors picks the kernel
 (CUDA) or its plain version (CPU).  SlamConfig.slam_outer global rounds
-rebuild the match map at the solved track.  Not ported yet:
-match_feedback=True and match_map_kf_only=False (ROADMAP).
+rebuild the match map at the solved track.
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
     _f,
+    div_f32,
     make_rays,
     recenter_apply,
     recenter_decide,
     shift_origin,
+    sqrt_f32,
     world_to_cell,
 )
 from micro_quad_slam_tpu_torch.ops.residentx import (
@@ -49,7 +55,11 @@ from micro_quad_slam_tpu_torch.ops.residentx import (
     map_chunk_sched,
     map_snap,
 )
-from micro_quad_slam_tpu_torch.ops.scanmatch import match_slabs, window_origin
+from micro_quad_slam_tpu_torch.ops.scanmatch import (
+    match_slabs,
+    match_window,
+    window_origin,
+)
 from micro_quad_slam_tpu_torch.replay.fusion import (
     DEG2RAD,
     RAD2DEG,
@@ -58,7 +68,6 @@ from micro_quad_slam_tpu_torch.replay.fusion import (
 from micro_quad_slam_tpu_torch.slam.posegraph import (
     add_edges,
     chain_odometry_graph,
-    check_float32_matmul,
     gauss_newton,
     se2_compose,
     se2_relative,
@@ -283,6 +292,104 @@ def _map_pass_nofb(beams, poses, cfg, geom, kf_every: int, sched,
     return grids, matched
 
 
+def _match_chunk(grids, beams, x, y, yaw_deg, ox0, oy0, cfg, geom):
+    """ops/scanmatch.py::match_scan of a chunk's keyframes [B, n] (beams
+    [B, n, 4, 8]) against their flight's grid, grids [B, PR, PC], with
+    every keyframe's cells in the chunk-start origin (ox0, oy0) [B]: one
+    flat batch of B * n matches, one lattice-kernel launch.  A match
+    whose quality clears match_min_quality replaces its guess (the JAX
+    package's _match_kf).  Returns the poses (x, y, yaw_deg) [B, n]."""
+    s = cfg.slam
+    B, n = x.shape
+    dev = x.device
+    ox, oy = ox0[:, None].expand(B, n), oy0[:, None].expand(B, n)
+    pcx, pcy = world_to_cell(x, y, ox, oy, cfg.map.res_m, cfg.map.width // 2,
+                             cfg.map.height // 2)
+    wy0, wx0 = window_origin(pcx, pcy, geom)
+    rr = wy0.long()[..., None] + torch.arange(geom.win_rows, device=dev)
+    cc = wx0.long()[..., None] + torch.arange(geom.win_cols, device=dev)
+    bb = torch.arange(B, device=dev)[:, None, None, None]
+    win = grids[bb, rr[..., :, None], cc[..., None, :]]       # [B, n, R, C]
+    fl = lambda a: a.reshape((B * n,) + a.shape[2:])               # noqa: E731
+    res = match_window(fl(win).contiguous(), fl(wy0), fl(wx0), fl(beams),
+                       fl(x), fl(y), fl(yaw_deg), fl(ox), fl(oy), cfg.map,
+                       cfg.tof, geom, s.match_n_xy, s.match_n_yaw,
+                       s.match_xy_step_m, s.match_yaw_step_deg)
+    ok = (res.quality > _f(s.match_min_quality)).reshape(B, n)
+    pick = lambda a, b: torch.where(ok, a.reshape(B, n), b)        # noqa: E731
+    return pick(res.x, x), pick(res.y, y), pick(res.yaw_deg, yaw_deg)
+
+
+def _map_pass_fb(beams, poses, cfg, geom, kf_every: int, sched,
+                 grid0=None):
+    """Pass 1 with match feedback (SlamConfig.match_feedback, or
+    match_map_kf_only=False): each keyframe's correction lands on the map
+    that later keyframes match.  The counterpart of the JAX package's
+    chunked pass (_map_pass_chunked) and bit-equal to its sequential pass
+    (_map_pass with match=True, snapshots every chunk).  Chunk by chunk of
+    match_chunk_intervals keyframe intervals:
+
+      - the chunk-start recenter rolls the grid (outside the kernel: the
+        matches see the rolled grid);
+      - every keyframe of the chunk matches that grid in the chunk-start
+        origin, all in one lattice-kernel launch (_match_chunk);
+      - the chunk lands on the grid in one launch of the exact kernel
+        (map_chunk_sched), its in-chunk recenters rolled in the kernel.
+
+    With match_map_kf_only only the keyframe scans land, at their matched
+    poses, and the recenter schedule is composed per keyframe interval
+    (_compose_kf_sched: zero-fill shifts compose exactly for same-sign
+    pairs; the recenters after the last keyframe roll once at the end).
+    Otherwise every frame lands, a keyframe at its matched pose and any
+    other frame at its estimate.  Frames past T are inert padding.
+    Returns (final grids, poses [B, T, 3]: matched at the keyframes, the
+    estimates elsewhere, yaw through degrees and back as the reference's
+    pass returns it)."""
+    B, T = poses.shape[:2]
+    grids = (torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
+                         device=poses.device) if grid0 is None else grid0)
+    C = kf_every * max(int(cfg.slam.match_chunk_intervals), 1)
+    nc = -(-T // C)
+    beams_p, sch = _pad_chunk_inputs(beams, sched, B, T, C, nc)
+    poses_p = _pad_t(poses, nc * C - T, 0.0)
+    n_kf = len(range(0, C, kf_every))
+    kf_only = bool(cfg.slam.match_map_kf_only)
+    if kf_only:
+        # the kernel's slots: one per keyframe, the schedule composed
+        comp, tail = _compose_kf_sched(sch, B, nc, kf_every, n_kf)
+        slots = {"beams": beams_p[:, ::kf_every],
+                 "ox": sch["ox"][:, ::kf_every],
+                 "oy": sch["oy"][:, ::kf_every], **comp}
+        per = n_kf
+    else:
+        slots = {"beams": beams_p, **sch}
+        per = C
+    x, y = poses_p[..., 0].clone(), poses_p[..., 1].clone()
+    yaw = poses_p[..., 2] * RAD2DEG
+    for c in range(nc):
+        s0 = c * per
+        sl = slice(s0, s0 + per)
+        kf = slice(c * C, (c + 1) * C, kf_every)
+        grids = _recenter_grids(grids, slots["do"][:, s0],
+                                slots["rsy"][:, s0], slots["rsx"][:, s0],
+                                cfg, geom)
+        do = slots["do"][:, sl].clone()
+        do[:, 0] = 0                       # rolled above
+        x[:, kf], y[:, kf], yaw[:, kf] = _match_chunk(
+            grids, beams_p[:, kf], x[:, kf], y[:, kf], yaw[:, kf],
+            slots["ox"][:, s0], slots["oy"][:, s0], cfg, geom)
+        land = kf if kf_only else slice(c * C, (c + 1) * C)
+        grids = map_chunk_sched(grids, slots["beams"][:, sl], x[:, land],
+                                y[:, land], yaw[:, land], slots["ox"][:, sl],
+                                slots["oy"][:, sl], do, slots["rsy"][:, sl],
+                                slots["rsx"][:, sl], cfg, geom)
+    if kf_only:
+        grids = _recenter_grids(grids, tail["do"], tail["rsy"], tail["rsx"],
+                                cfg, geom)
+    matched = torch.stack([x, y, yaw * DEG2RAD], dim=-1)[:, :T]
+    return grids, matched
+
+
 def _raster_windows(kfp, kf_beams, kf_ox, kf_oy, cfg, geom):
     """Each keyframe's scan alone as an endpoint field in its own
     [win_rows, win_cols] window: the endpoint deltas of its valid rays
@@ -425,7 +532,8 @@ def _build_and_solve(odo, matched, kf_idx, lij, lz, lok, lq, sc, cfg,
     ar = torch.arange(1, K, device=dev)
     ij = torch.stack([torch.zeros_like(ar), ar], -1).expand(B, K - 1, 2)
     g = add_edges(g, ij, anchors, [_f(v) for v in s.anchor_w])
-    qsc = lq.div(_f(s.loop_q_ref)).clamp(_f(s.loop_q_min), _f(s.loop_q_max))
+    qsc = div_f32(lq, _f(s.loop_q_ref)).clamp(_f(s.loop_q_min),
+                                              _f(s.loop_q_max))
     w = torch.tensor([_f(v) for v in s.loop_w], dtype=torch.float32,
                      device=dev)[None, None, :] * qsc[..., None]
     g = add_edges(g, lij, lz, w, mask=lok, huber=_f(s.loop_huber))
@@ -439,7 +547,7 @@ def _build_and_solve(odo, matched, kf_idx, lij, lz, lok, lq, sc, cfg,
 
 def _norm2(v):
     """Euclidean norm over the last axis of 2: sqrt(x*x + y*y)."""
-    return torch.sqrt((v * v).sum(-1))
+    return sqrt_f32(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
 
 
 def _check_frames(frames: dict, cfg: PipelineConfig, kf_every: int,
@@ -450,10 +558,6 @@ def _check_frames(frames: dict, cfg: PipelineConfig, kf_every: int,
                          f">= 1, got x_m of shape {tuple(x.shape)} and "
                          f"kf_every={kf_every}")
     s = cfg.slam
-    if s.match_feedback or not s.match_map_kf_only:
-        raise NotImplementedError(
-            "slam_replay ports the feedback-free keyframe match map only "
-            "(SlamConfig.match_feedback=False, match_map_kf_only=True)")
     if int(s.gn_refine_iters) > gn_iters:
         raise ValueError(f"gn_refine_iters={s.gn_refine_iters} exceeds "
                          f"gn_iters={gn_iters}")
@@ -465,7 +569,6 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     """slam_replay's body.  upto stops after a stage and returns its
     output: 0 = (odo, sched), 1 = matched poses of the last round's pass 1,
     2 = (matched, loop ij, z, ok), 3 = (kf_nodes, gn_costs), 4 = track."""
-    check_float32_matmul()
     s = cfg.slam
     kf_every = s.kf_every if kf_every is None else kf_every
     gn_iters = s.gn_iters if gn_iters is None else gn_iters
@@ -504,9 +607,13 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     gn_ref = int(s.gn_refine_iters) if int(s.gn_refine_iters) > 0 else None
     for rnd in range(n_outer):
         last = rnd == n_outer - 1
-        _, matched = _map_pass_nofb(beams, est, cfg, geom, kf_every, sched,
-                                    grid0=grid0,
-                                    n_iters=None if rnd == 0 else it_later)
+        if s.match_map_kf_only and not s.match_feedback:
+            _, matched = _map_pass_nofb(
+                beams, est, cfg, geom, kf_every, sched, grid0=grid0,
+                n_iters=None if rnd == 0 else it_later)
+        else:
+            _, matched = _map_pass_fb(beams, est, cfg, geom, kf_every, sched,
+                                      grid0=grid0)
         if last and upto == 1:
             return matched
         loop = run_loop(matched[:, kf_idx])
@@ -538,9 +645,10 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
         # the per-flight odometry scale, refitted from the solved keyframe
         # steps, and every frame corrected rigidly from its keyframe
         sol_kf_d = _norm2(torch.diff(kf_nodes[..., :2], dim=1))
-        sc = ((odo_kf_d * sol_kf_d).sum(1)
-              / (odo_kf_d * odo_kf_d).sum(1).clamp_min(_f(1e-9))).clamp(
-                  _f(s.odo_scale_min), _f(s.odo_scale_max))
+        # the sums in float64, rounded once: the same bits on every device
+        sc = ((odo_kf_d * sol_kf_d).double().sum(1).float()
+              / (odo_kf_d * odo_kf_d).double().sum(1).float().clamp_min(
+                  _f(1e-9))).clamp(_f(s.odo_scale_min), _f(s.odo_scale_max))
         rel_sc = rel * torch.stack([sc, sc, torch.ones_like(sc)],
                                    -1)[:, None, :]
         track = se2_compose(kf_nodes[:, owner], rel_sc)

@@ -48,6 +48,29 @@ Beside the flights, reference results of the JAX package's replay
                            slam_replay of the capture's frames [1, 256]:
                            `slam_track`, `slam_odo_track`, `slam_kf_nodes`
                            and the grid's `slam_sums`, `slam_weighted`
+    slam_fb_ref            pass 1's feedback formulations: its
+                           slam_replay with match_feedback=True (`fb_`)
+                           and with match_map_kf_only=False (`all_`) of
+                           slam_bench_flights (keys as slam_bench_ref's)
+                           and of the slam_stages batch (`stage_fb_`,
+                           `stage_all_`: track, kf_nodes, sums,
+                           weighted); and its sequential pass 1 (_map_pass,
+                           match=True, gate 0.05, kf_every 8) on the
+                           recentering flight of tests/test_slam.py:593
+                           (4 x 64 frames, inputs under `rc_in_`): the
+                           odometry `rc_odo` and schedule `rc_sched_*` it
+                           was fed, and `rc_{fb,all}_grid` (padded
+                           [4, PR, PC]) and `rc_{fb,all}_matched`
+                           [4, 64, 3]; and the same pass as
+                           slam_replay's first round runs it on
+                           slam_bench_flights (UL profile): `pass1_odo`,
+                           `pass1_sched_*`, `pass1_{fb,all}_grid`,
+                           `pass1_{fb,all}_matched` [4, 256, 3]
+    cl_fuzz_telemetry      the telemetry of the golden CL machine's runs
+                           on tests/test_behavior_cl.py:160's fuzzed
+                           schedules (fc_mock.random_scenario, seeds
+                           10000-10031, 700 ticks): each Telemetry field
+                           [700, 32] (telems_to_arrays' dtypes)
     swarm_small_jax        its closed-loop simulator on bench.py's swarm
                            configuration (bench.py:45-81) cut to B=8:
                            the start state sim_init(8, PRNGKey(0),
@@ -86,13 +109,15 @@ NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
          "golden_short_beams", "bench_flight", "slam_bench_flights")
 REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
               "slam_stages", "swarm_small_jax", "swarm_bench_ref",
-              "wire_ref")
+              "wire_ref", "slam_fb_ref", "cl_fuzz_telemetry")
 
 # bench.py's swarm workload (bench.py:45-81): world, start and run
 SWARM_WORLD = {"room": (-3.5, -3.5, 3.5, 3.5),
                "obstacles": ((1.5, -0.5, 2.5, 0.5),)}
 SWARM_RUN = {"dt_ms": 1, "scan_period_ms": 100}
 SWARM_T, SWARM_B = 1000, 1024
+# the CL machine's fuzzed schedules kept in cl_fuzz_telemetry
+CL_FUZZ_SEEDS, CL_FUZZ_TICKS = 32, 700
 
 
 def path(name: str) -> str:
@@ -370,3 +395,19 @@ def slam_kernel_operands(frames: dict, cfg) -> tuple:
                                    cfg, geom)
     return snap_ops, {"pass1": pass1,
                       "loop": lattice(args, s.loop_n_xy, s.loop_n_yaw)}
+
+
+def cl_fuzz(B: int, device=None) -> dict:
+    """cl_fuzz_telemetry's schedules tiled to B quads, as [T, B] tensors
+    on `device` (the CUDA device unless told otherwise) for the CL
+    machine's step: the uint32 health bits widen to int64."""
+    import torch
+
+    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+
+    device = as_device(device)
+    ref = reference("cl_fuzz_telemetry")
+    reps = -(-B // CL_FUZZ_SEEDS)
+    return {k: torch.from_numpy(np.concatenate(
+        [v.astype(np.int64) if v.dtype == np.uint32 else v] * reps,
+        axis=1)[:, :B]).to(device) for k, v in ref.items()}

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
 map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu) against
-their plain torch versions, on the card, and the simulator's card run
-against the committed JAX small swarm.  Every test here needs a
+their plain torch versions, on the card, the simulator's card run
+against the committed JAX small swarm, and the SLAM's card run against
+its CPU run.  Every test here needs a
 CUDA device and skips without one.  The file imports nothing of jax or
 the JAX package (its flights are the port's committed test data), so it
 also runs where only the port is installed; from the repository root on a
@@ -346,3 +347,28 @@ def test_swarm_small_equals_jax_on_the_card(cuda):
                      .abs().max()) <= 1e-4, k
     assert float((fin.ekf.mean.cpu() - torch.from_numpy(ref["ekf_mean"]))
                  .abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("form", [{}, {"match_feedback": True},
+                                  {"match_map_kf_only": False}],
+                         ids=["default", "fb", "all"])
+def test_slam_on_the_card_equals_the_cpu_run_bit_for_bit(cuda, form):
+    """slam_replay of the 4 SLAM bench flights in each pass-1
+    formulation, on the card and on the CPU: every output the same bits.
+    The feedback formulations carry an ulp into the map that later
+    keyframes match, so this needs every float step of the path to round
+    as the CPU's does (division by a tensor, the pose graph's chained
+    normal equations and float64 factorization, correctly rounded sqrt)."""
+    import dataclasses
+
+    from micro_quad_slam_tpu_torch.slam import pipeline as sp
+
+    cfg = dataclasses.replace(UL_PROFILE, slam=dataclasses.replace(
+        UL_PROFILE.slam, **form))
+    card = sp.slam_replay(testdata.slam_bench_frames(4, device=cuda), cfg)
+    cpu = sp.slam_replay(testdata.slam_bench_frames(4, device="cpu"), cfg)
+    for name in ("grid", "track", "odo_track", "kf_nodes", "gn_costs"):
+        # gn_costs pads a shorter refine solve's trace with NaN
+        a, b = getattr(card, name).cpu(), getattr(cpu, name)
+        assert torch.equal(a, b) or torch.equal(a.nan_to_num(7.0),
+                                                b.nan_to_num(7.0)), name

@@ -80,7 +80,9 @@ NEW_MODULES = ("bench.py", "utils/checkpoint.py", "formats/mavlink.py",
                "formats/scanframe.py", "formats/wirecap.py",
                "formats/navlog.py", "formats/armlink.py",
                "replay/telemetry.py", "replay/livestream.py",
-               "sim/synthio.py", "utils/obs.py", "__main__.py")
+               "sim/synthio.py", "utils/obs.py", "__main__.py",
+               "parallel/mesh.py", "parallel/dryrun.py",
+               "models/behavior_cl.py", "io/native.py")
 
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
@@ -102,6 +104,7 @@ def test_port_imports_and_replays_without_jax(tmp_path):
     neither jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
+        import numpy as np
         import micro_quad_slam_tpu_torch as port
         from micro_quad_slam_tpu_torch import testdata
         from micro_quad_slam_tpu_torch.replay.fusion import (
@@ -149,6 +152,24 @@ def test_port_imports_and_replays_without_jax(tmp_path):
             assert main(["info"]) == 0
         assert json.loads(out.getvalue())["backend"] in ("cuda", "cpu")
         assert formats.NavlogWriter and bench.run
+        from micro_quad_slam_tpu_torch.io import native
+        from micro_quad_slam_tpu_torch.models import behavior_cl
+        from micro_quad_slam_tpu_torch.parallel import mesh
+        from micro_quad_slam_tpu_torch.slam import pipeline
+        st, _, m = mesh.replay_mapping_sharded(
+            {k: v[:2, :8] for k, v in testdata.load("random_flights")[0].items()},
+            port.UL_PROFILE, ["cpu", "cpu"], kernel="residentx")
+        assert int(m["frames_total"]) == 16 and st.grid.shape[0] == 2
+        formats.write_scanlog("l.bin", log)
+        assert np.array_equal(native.read_scanlog_native("l.bin").grid_mm,
+                              formats.read_scanlog("l.bin").grid_mm)
+        cl = behavior_cl.behavior_cl_init(2, "cpu")
+        assert cl._fields[0] == "st"
+        import dataclasses
+        fb = dataclasses.replace(port.UL_RT_PROFILE, slam=dataclasses.replace(
+            port.UL_RT_PROFILE.slam, match_feedback=True))
+        res = pipeline.slam_replay(s, fb, kf_every=8, gn_iters=2)
+        assert res.track.shape == (1, 24, 3)
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "micro_quad_slam_tpu"))
         assert not loaded, loaded

@@ -4,9 +4,10 @@ bars of tests/test_slam.py's Gauss-Newton cases.
 
 Tolerance: 1e-4 m and rad on solved nodes, 1e-5 on SE(2) compositions.
 The port batches flights where the JAX package vmaps; its normal
-equations are the same dense (W A)^T A product in full float32, but the
-matmul and Cholesky sum in another order than XLA's, and XLA-CPU fuses
-products into fmas.
+equations are the (W A)^T A product in float32, summed as the CPU's
+float32 matmul sums it, and it factors them in float64 where XLA factors
+in float32.  Its solve gives the same bits at every batch size (and on
+the card, tests/test_torch_kernel.py).
 """
 
 import numpy as np
@@ -151,13 +152,81 @@ def test_chain_and_add_edges_equal_jax():
 
 
 def test_gauss_newton_refuses_tf32():
+    """The solve once refused reduced-precision float32 matmuls; it now
+    runs in float64, so the setting cannot reach it: the same bits under
+    'high' as under 'highest'."""
     _, noisy, z = _chain(4, 1)
     _, t = _graphs(noisy, np.stack([np.arange(3), np.arange(1, 4)], -1), z,
                    np.ones((3, 3), F32), np.ones(3, bool), np.zeros(3, F32))
+    want = tpg.gauss_newton(t, iters=3)
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        with pytest.raises(RuntimeError, match="full float32"):
-            tpg.gauss_newton(t, iters=1)
+        got = tpg.gauss_newton(t, iters=3)
     finally:
         torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got[0].nodes, want[0].nodes)
+    assert torch.equal(got[1], want[1])
+
+
+def _random_graphs(B, K, n_loop, seed):
+    """B flights of K nodes: an odometry chain, anchors to node 0 and
+    n_loop random edges; a fifth of the edges padded (every self-edge
+    among them), half of them Huber."""
+    rng = np.random.default_rng(seed)
+    truth = np.cumsum(rng.normal(0, 0.5, (B, K, 3)), 1).astype(F32)
+    nodes = truth + rng.normal(0, 0.1, truth.shape).astype(F32)
+    ar = np.arange(1, K)
+    ij = np.concatenate([
+        np.broadcast_to(np.stack([ar - 1, ar], -1), (B, K - 1, 2)),
+        np.broadcast_to(np.stack([0 * ar, ar], -1), (B, K - 1, 2)),
+        rng.integers(0, K, (B, n_loop, 2))], 1)
+    E = ij.shape[1]
+    gi = np.take_along_axis(truth, ij[..., :1], 1)
+    gj = np.take_along_axis(truth, ij[..., 1:], 1)
+    z = np.asarray(jpg.se2_relative(jnp.asarray(gi), jnp.asarray(gj)))
+    z = z + rng.normal(0, 0.02, z.shape).astype(F32)
+    mask = (rng.random((B, E)) > 0.2) & (ij[..., 0] != ij[..., 1])
+    return tpg.PoseGraph(
+        torch.from_numpy(nodes), torch.from_numpy(ij.astype(np.int64)),
+        torch.from_numpy(z), torch.from_numpy(
+            rng.uniform(1, 400, (B, E, 3)).astype(F32)),
+        torch.from_numpy(mask), torch.from_numpy(
+            np.where(rng.random((B, E)) > 0.5, 0.5, 0.0).astype(F32)))
+
+
+@pytest.mark.parametrize("K,n_loop,seed", [(5, 4, 0), (12, 20, 1),
+                                           (26, 52, 2)])
+def test_normal_equations_sum_as_the_cpu_matmul(K, n_loop, seed):
+    """The chained normal equations equal torch's float32 CPU matmul of
+    the dense Jacobian, (W A)^T A and (W A)^T r, bit for bit on every
+    entry of the unpinned nodes."""
+    g = _random_graphs(3, K, n_loop, seed)
+    r, Ji, Jj = tpg._residuals_and_jacobians(g.nodes, g)
+    wmask = g.edges_w * g.edge_mask[..., None].to(torch.float32)
+    H, b = tpg._normal_equations(r, Ji, Jj, wmask,
+                                 tpg._incidence_order(g.edges_ij, K))
+    B, E = r.shape[:2]
+    ks = torch.arange(K)
+    Si = (g.edges_ij[..., 0, None] == ks).to(torch.float32)
+    Sj = (g.edges_ij[..., 1, None] == ks).to(torch.float32)
+    A = (Si[:, :, None, :, None] * Ji[:, :, :, None, :]
+         + Sj[:, :, None, :, None] * Jj[:, :, :, None, :]
+         ).reshape(B, E * 3, K * 3)
+    AwT = (A * wmask.reshape(B, E * 3)[..., None]).transpose(1, 2)
+    live = torch.arange(3 * K) >= 3
+    assert torch.equal(H.float()[:, live][:, :, live],
+                       torch.matmul(AwT, A)[:, live][:, :, live])
+    assert torch.equal(b.float()[:, live],
+                       torch.matmul(AwT, r.reshape(B, E * 3, 1))[:, live, 0])
+
+
+def test_gauss_newton_does_not_depend_on_batch_size():
+    """Six flights solved together, and each alone: the same bits."""
+    g = _random_graphs(6, 12, 20, 3)
+    nodes, costs = tpg.gauss_newton(g, iters=5)
+    for f in range(6):
+        one, c1 = tpg.gauss_newton(tpg.PoseGraph(*(a[f:f + 1] for a in g)),
+                                   iters=5)
+        assert torch.equal(one.nodes[0], nodes.nodes[f]), f
+        assert torch.equal(c1[0], costs[f]), f

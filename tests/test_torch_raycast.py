@@ -290,3 +290,20 @@ def test_mapping_step_pallas_routes_equal_xla(kernel):
         assert all(torch.equal(oa[k], ob[k]) for k in oa)
         recentered += int(oa["kf_flags"].ne(0).sum())
     assert recentered >= 1 and int(sa.grid.ne(0).sum()) > 1000
+
+
+def test_sqrt_and_div_f32_round_once_as_numpy():
+    """sqrt_f32 and div_f32 give the correctly rounded float32 result (as
+    numpy's float32 sqrt and division do): the rounding the card's and the
+    CPU's float32 sqrt, and CUDA's product by a reciprocal, can each miss
+    by a last bit."""
+    rng = np.random.default_rng(0)
+    a = (rng.random(200_000) * rng.choice([1e-6, 1.0, 1e4], 200_000)
+         ).astype(np.float32)
+    np.testing.assert_array_equal(tr.sqrt_f32(torch.from_numpy(a)).numpy(),
+                                  np.sqrt(a))
+    x = rng.normal(0, 10, 200_000).astype(np.float32)
+    for d in (0.05, 3.0, 1000.0, 2 * np.pi):
+        np.testing.assert_array_equal(
+            tr.div_f32(torch.from_numpy(x), float(np.float32(d))).numpy(),
+            x / np.float32(d))

@@ -248,13 +248,24 @@ def test_resume_from_state0_continues_the_map():
 
 
 def test_slam_refuses_the_formulations_not_ported():
-    import dataclasses
+    """The formulations once refused (match_feedback=True,
+    match_map_kf_only=False) run on the stage batch and agree with the
+    JAX package's slam_replay of it (testdata slam_fb_ref): nodes and track
+    within 1e-4, grid sums equal."""
+    from test_torch_testdata import FB_FORMS, _formulation
+
     frames, _ = _stage_frames()
-    for kw in ({"match_feedback": True}, {"match_map_kf_only": False}):
-        cfg = dataclasses.replace(UL_PROFILE, slam=dataclasses.replace(
-            UL_PROFILE.slam, **kw))
-        with pytest.raises(NotImplementedError):
-            sp.slam_replay(frames, cfg)
+    ref = testdata.reference("slam_fb_ref")
+    for form in sorted(FB_FORMS):
+        res = sp.slam_replay(frames, _formulation(_stage_profile(), form),
+                             GEOM, 10, 4)
+        _close(res.kf_nodes, ref[f"stage_{form}_kf_nodes"], 1e-4, form)
+        _close(res.track, ref[f"stage_{form}_track"], 1e-4, form)
+        got = testdata.grid_sums(res.grid.numpy())
+        for k in ("sums", "weighted"):
+            np.testing.assert_array_equal(got[k],
+                                          ref[f"stage_{form}_{k}"],
+                                          err_msg=f"{form} {k}")
 
 
 # ------------------------------------------------------ SLAM, bench flights

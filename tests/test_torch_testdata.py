@@ -27,6 +27,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from micro_quad_slam_tpu.golden import golden_replay_mapping  # noqa: E402
 from micro_quad_slam_tpu.replay import fusion as jfusion  # noqa: E402
@@ -220,6 +221,139 @@ def slam_stages() -> dict:
     for upto in (0, 1, 2, 3, 99):
         out.update(_jax_slam_stage(frames, upto))
     return out
+
+
+FB_FORMS = {"fb": {"match_feedback": True},
+            "all": {"match_map_kf_only": False}}
+FB_KF_EVERY = 8        # the recentering flight's keyframe interval
+
+
+def _formulation(cfg, form: str, **extra):
+    """`cfg` (either package's PipelineConfig) with pass 1's formulation
+    `form` of FB_FORMS and any other SlamConfig overrides."""
+    return dataclasses.replace(cfg, slam=dataclasses.replace(
+        cfg.slam, **FB_FORMS[form], **extra))
+
+
+def recentering_flight() -> dict:
+    """tests/test_slam.py:593-628's batch: two 64-frame circles (flow on,
+    6 mm noise), each twice, with a -20 flow excursion on flight 3 that
+    drags its odometry far enough to recenter."""
+    logs = [synth_room_scanlog(n_frames=64, seed=s, path="circle",
+                               noise_mm=6.0, with_flow=True)
+            for s in range(2)]
+    frs = [{**jm.scanlog_to_arrays(lg), **jfusion.fusion_arrays(lg)}
+           for lg in logs]
+    b4 = {k: np.stack([f[k] for f in frs] * 2) for k in frs[0]}
+    b4["of_rate_x"][3] = b4["of_rate_x"][3] + np.float32(-20.0)
+    return b4
+
+
+def _jax_sequential_pass(frames: dict, form: str, bench: bool = False
+                         ) -> dict:
+    """The JAX package's sequential feedback pass 1 (_map_pass with
+    match=True, a snapshot every chunk, the keyframe update mask in
+    kf-only mode) on the odometry and schedule of `frames`: on the
+    recentering flight with kf_every FB_KF_EVERY and the lowered accept
+    gate of tests/test_slam.py:648-653, so that live corrections land;
+    with bench=True, as slam_replay's first round runs it (UL profile,
+    the fused odometry and schedule)."""
+    import jax.numpy as jnp
+    from micro_quad_slam_tpu.ops.beams import extract_beams
+    from micro_quad_slam_tpu.ops.raycast import DEFAULT_GEOM
+    from micro_quad_slam_tpu.slam.pipeline import (
+        _ekf_track, _map_pass, _odo_and_schedule, _origin_schedule)
+
+    bj = {k: jnp.asarray(v) for k, v in frames.items()}
+    T = frames["x_m"].shape[1]
+    if bench:
+        cfg = _formulation(JAX_UL, form)
+        kf_every = cfg.slam.kf_every
+        odo, sched = _odo_and_schedule(bj, cfg)
+    else:
+        cfg = _formulation(JAX_UL, form, match_min_quality=0.05)
+        kf_every = FB_KF_EVERY
+        odo = _ekf_track(bj, cfg)
+        sched = _origin_schedule(odo, cfg)
+    beams, _ = extract_beams(bj["grid_mm"], cfg.tof)
+    kf_mask = (jnp.arange(T) % kf_every) == 0
+    snap = (jnp.arange(T) % (kf_every * cfg.slam.match_chunk_intervals)) == 0
+    grid, matched = _map_pass(
+        beams, odo, cfg, DEFAULT_GEOM, True, kf_mask, sched,
+        snap_mask_t=snap,
+        update_mask_t=kf_mask if cfg.slam.match_map_kf_only else None)
+    out = {"odo": odo, "grid": grid, "matched": matched,
+           **{f"sched_{k}": v for k, v in sched.items()}}
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _slam_fb_runs(frames: dict, stage: dict) -> dict:
+    """slam_fb_ref's slam_replay results of both formulations on the
+    bench flights and the stage batch."""
+    from micro_quad_slam_tpu.ops.raycast import DEFAULT_GEOM
+    from micro_quad_slam_tpu.slam.pipeline import _slam_impl
+
+    out = {}
+    for form in FB_FORMS:
+        res = _jax_slam(frames, _formulation(JAX_UL, form))
+        sums = testdata.grid_sums(res.grid)
+        out.update({f"{form}_track": res.track,
+                    f"{form}_odo_track": res.odo_track,
+                    f"{form}_kf_nodes": res.kf_nodes,
+                    f"{form}_sums": sums["sums"],
+                    f"{form}_weighted": sums["weighted"]})
+        res = jax.tree_util.tree_map(np.asarray, _slam_impl(
+            stage, _formulation(slam_stage_profile(JAX_UL), form),
+            DEFAULT_GEOM, 10, 4, None, 99))
+        sums = testdata.grid_sums(res.grid)
+        out.update({f"stage_{form}_track": res.track,
+                    f"stage_{form}_kf_nodes": res.kf_nodes,
+                    f"stage_{form}_sums": sums["sums"],
+                    f"stage_{form}_weighted": sums["weighted"]})
+    return out
+
+
+def slam_fb_ref() -> dict:
+    """The feedback formulations of pass 1 in the JAX package, on the CPU:
+    its slam_replay of slam_bench_flights and of the stage batch (trimmed
+    profile, kf_every 10, gn_iters 4) with match_feedback=True (`fb_`) and
+    with match_map_kf_only=False (`all_`), and its sequential pass 1 on
+    the recentering flight (`rc_`) and, as slam_replay's first round
+    runs it, on the bench flights (`pass1_`)."""
+    out = _slam_fb_runs(testdata.load("slam_bench_flights")[0],
+                        slam_stage_inputs())
+    rc = recentering_flight()
+    out.update({f"rc_in_{k}": v for k, v in rc.items()})
+    for form in FB_FORMS:
+        seq = _jax_sequential_pass(rc, form)
+        out.update({f"rc_{form}_grid": seq["grid"],
+                    f"rc_{form}_matched": seq["matched"]})
+    out.update({f"rc_{k}": v for k, v in seq.items()
+                if k == "odo" or k.startswith("sched_")})
+    bench = testdata.load("slam_bench_flights")[0]
+    for form in FB_FORMS:
+        seq = _jax_sequential_pass(bench, form, bench=True)
+        out.update({f"pass1_{form}_grid": seq["grid"],
+                    f"pass1_{form}_matched": seq["matched"]})
+    out.update({f"pass1_{k}": v for k, v in seq.items()
+                if k == "odo" or k.startswith("sched_")})
+    return out
+
+
+def cl_fuzz_telemetry() -> dict:
+    """tests/test_behavior_cl.py:160's fuzzed schedules (fc_mock's
+    random_scenario, seeds 10000 on) as the golden CL machine's telemetry,
+    the first CL_FUZZ_SEEDS of them for CL_FUZZ_TICKS ticks: each field
+    [T, seeds]."""
+    from fc_mock import random_scenario, run_scenario
+    from micro_quad_slam_tpu.golden.behavior_cl import GoldenBehaviorCL
+    from test_behavior import telems_to_arrays
+
+    arrs = [telems_to_arrays(run_scenario(
+        random_scenario(10_000 + s), n_ticks=testdata.CL_FUZZ_TICKS,
+        machine=GoldenBehaviorCL())[0])
+        for s in range(testdata.CL_FUZZ_SEEDS)]
+    return {k: np.stack([a[k] for a in arrs], axis=1) for k in arrs[0]}
 
 
 def jax_scan_draws(key, n_steps: int, dt_ms: int, scan_period_ms: int,
@@ -505,9 +639,25 @@ def test_wire_ref_grids_equal_jax_and_the_port_now():
     assert (ref["exact_grid"] > 10).sum() > 100
 
 
+def test_cl_fuzz_telemetry_equals_the_mock_now():
+    want = cl_fuzz_telemetry()
+    got = testdata.reference("cl_fuzz_telemetry")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    tiled = testdata.cl_fuzz(3 * testdata.CL_FUZZ_SEEDS, device="cpu")
+    assert tiled["t_ms"].shape == (testdata.CL_FUZZ_TICKS,
+                                   3 * testdata.CL_FUZZ_SEEDS)
+    assert tiled["sys_health"].dtype == torch.int64
+    np.testing.assert_array_equal(
+        tiled["rf_m"][:, testdata.CL_FUZZ_SEEDS:].numpy(),
+        np.concatenate([want["rf_m"]] * 2, axis=1))
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("name", ["slam_stages", "slam_bench_ref",
-                                  "wire_ref"])
+                                  "wire_ref", "slam_fb_ref"])
 def test_slam_references_equal_jax_now(name):
     want = build(name)
     got = testdata.reference(name)
