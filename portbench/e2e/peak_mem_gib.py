@@ -1,0 +1,6 @@
+"""peak_mem_gib: torch.cuda.max_memory_allocated() over set-up and the
+window (the statistics reset when set-up starts), in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30
