@@ -54,8 +54,9 @@ failure; nothing falls back to the CPU.  Phases:
      cone kernel is also timed in cone mode, and in hybrid mode on the
      SLAM bench flights, whose hits need the column search); the SLAM
      bench, UL_PROFILE at
-     B=128 and UL_RT_PROFILE at B=256, T=256 (frames/s, checksum, per-stage
-     seconds, launches, device busy and idle share, and the lattice kernel
+     B=128 and UL_RT_PROFILE at B=256, T=256 (frames/s, checksum, the
+     program's stage spans and counters in the profiled replay, launches,
+     device busy and idle share, and the lattice kernel
      and snapshot entry alone against their plain versions and bounds,
      with the lattice kernel's ratio to its bound and build facts);
      and the EKF bench at B=1024.  The hybridx grids' per-flight sums
@@ -94,7 +95,7 @@ failure; nothing falls back to the CPU.  Phases:
      replay_exact 22, the snapshot entry none), each run bit-equal to its
      twin with the kernels' plain versions on the card, and against the
      JAX package's CPU run (slam_fb_ref) within the SLAM tolerances on
-     all 4 flights, grid sums equal, with frames/s and seconds per stage;
+     all 4 flights, grid sums equal, with frames/s and the stage spans;
  11. the sharded entries (parallel/mesh.py) over ["cuda:0", "cuda:0"]
      (a repeated device, not a second card), each equal to the unsharded
      run: the bench replay through residentx and hybridx (checksums
@@ -141,6 +142,7 @@ from micro_quad_slam_tpu_torch.ops import scanmatch as sm
 from micro_quad_slam_tpu_torch.models import simulator as sim
 from micro_quad_slam_tpu_torch.replay import fusion as fu
 from micro_quad_slam_tpu_torch.slam import pipeline as sp
+from micro_quad_slam_tpu_torch.utils import obs
 
 UL_PROFILE = port.UL_PROFILE
 GEOM = port.DEFAULT_GEOM
@@ -183,11 +185,10 @@ KERNELS = {
         "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1662"},
 }
-# counters of the kernels' wrappers (one per launch)
-WRAPPERS = {"replay_exact": rx.replay_exact, "replay_cone": cx.replay_cone,
-            "match_lattice": ml.match_lattice,
-            "replay_exact_snap": rx.replay_exact_snap,
-            "map_step": rx.map_step}
+# the kernels whose wrappers count each launch in the counter
+# launches.<name> (utils/obs.py)
+LAUNCHED = ("replay_exact", "replay_cone", "match_lattice",
+            "replay_exact_snap", "map_step")
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -265,13 +266,11 @@ def replay(frames_np: dict, device, kernel: str, state0=None):
         state0=state0)
 
 
-def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-
-
-def launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+def launch_counts() -> dict:
+    """Each kernel's launches since the counter table was last taken
+    (obs.take())."""
+    c = obs.counters()
+    return {name: c.get(f"launches.{name}", 0) for name in LAUNCHED}
 
 
 def assert_same(a, b, what: str) -> None:
@@ -477,7 +476,7 @@ def _check_tile_case(name: str, sched) -> int:
 
 
 def phase_kernel_vs_plain(device) -> None:
-    before = rx.replay_exact.launches
+    before = launch_counts()["replay_exact"]
     cases = _cases()
     tile_loads = {}
     for name, f in cases.items():
@@ -496,7 +495,7 @@ def phase_kernel_vs_plain(device) -> None:
         if name == "recenter_in_gated_run":
             kf, used = outs["kf_flags"][0].cpu(), outs["used"][0].cpu()
             check(kf[10] != 0 and not used[8:16].any(), "scenario missed")
-    launches = rx.replay_exact.launches - before
+    launches = launch_counts()["replay_exact"] - before
     check(launches >= len(cases), f"kernel launched {launches} times")
     say("kernel_vs_plain", kernel="replay_exact", cases=list(cases),
         bit_equal=True, launches=launches, tile_loads=tile_loads)
@@ -506,7 +505,7 @@ def phase_cone_kernel_vs_plain(device) -> None:
     """The cone kernel in both modes against the per-frame plain path; in
     hybrid mode the short beams pile endpoint increments on the pose
     cell.  Then hybridx against the JAX package's hybrid grids."""
-    before = cx.replay_cone.launches
+    before = launch_counts()["replay_cone"]
     cases = _cases()
     for name, f in cases.items():
         for kernel, plain in (("conex", "cone"), ("hybridx", "hybrid")):
@@ -519,7 +518,7 @@ def phase_cone_kernel_vs_plain(device) -> None:
             if name == "short_beams" and kernel == "hybridx":
                 check(int(st.grid.max()) >= UL_PROFILE.map.lo_max - 10,
                       "short_beams: no endpoint pile-up")
-    launches = cx.replay_cone.launches - before
+    launches = launch_counts()["replay_cone"] - before
     check(launches >= 2 * len(cases), f"kernel launched {launches} times")
     st, _ = replay(random_flights(), device, "hybridx")
     want = testdata.reference("hybrid_random_flights")["grid"]
@@ -646,6 +645,16 @@ def _launch_groups(prof, names) -> list:
             for k, ms, n in groups.values()]
 
 
+def _idle_share(busy: dict, wall_s: float):
+    """1 - device busy time / wall_s, checked to lie in [0, 1]; None when
+    the profiler saw no device activity."""
+    if busy["busy_ms"] is None:
+        return None
+    idle = 1 - busy["busy_ms"] / (wall_s * 1e3)
+    check(0 <= idle <= 1, f"device idle share {idle} outside [0, 1]")
+    return idle
+
+
 def _profiled_busy(fn, names, launch_groups: bool = False) -> dict:
     """One call of fn under torch.profiler (host and device): the summed
     device time of every kernel, copy and fill it ran and their count, the
@@ -653,9 +662,10 @@ def _profiled_busy(fn, names, launch_groups: bool = False) -> dict:
     `names` (with launch_groups, also by launch shape: _launch_groups),
     the wall time of the profiled run, and the five host events
     with the most summed time (`host_total`: nested events included, so a
-    caller's time holds its callees').  It reads the trace's raw events
-    (the profiler's kineto results): key_averages() builds an event tree
-    that takes many minutes for one 1,000-tick swarm run (~1.9 M kernels).
+    caller's time holds its callees').  The program spans' ranges are
+    neither.  It reads the trace's raw events (the profiler's kineto
+    results): key_averages() builds an event tree that takes many
+    minutes for one 1,000-tick swarm run (~1.9 M kernels).
     busy_ms is None when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -670,6 +680,8 @@ def _profiled_busy(fn, names, launch_groups: bool = False) -> dict:
     kern_ns, kern_n = {}, {}
     for e in prof.profiler.kineto_results.events():
         name, ns = e.name(), e.duration_ns()
+        if e.is_user_annotation():
+            continue    # a program span's range (obs.span), on either side
         if e.device_type() == DeviceType.CUDA:
             dev_ns += ns
             dev_n += 1
@@ -941,12 +953,12 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     check(frames["x_m"].shape == (B, T), "bench frames")
     torch.cuda.synchronize()
 
-    reset_launches()                      # count this path's run only
+    obs.take()                            # count this path's run only
     line, (st_k, outs_k) = bench.bench_replay(
         kernel, B, T, reps, device, first=kernel == "residentx",
         frames=frames)
     times_k = line["rep_seconds"]
-    n_launch = launches()
+    n_launch = launch_counts()
     metrics = port.batch_metrics(outs_k)
     sched_s = _time_schedule(frames, kernel, reps)
     busy = _device_busy(frames, kernel)
@@ -954,7 +966,7 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
         PLAIN[kernel], B, T, plain_reps, device, frames=frames)
     times_p = plain_line["rep_seconds"]
     dt_k, dt_p = min(times_k), min(times_p)
-    idle = None if busy["busy_ms"] is None else 1 - busy["busy_ms"] / (dt_k * 1e3)
+    idle = _idle_share(busy, dt_k)
 
     ck, cp = checksum(st_k.grid), checksum(st_p.grid)
     used, total = int(metrics["frames_used"]), int(metrics["frames_total"])
@@ -1162,7 +1174,7 @@ def phase_slam_kernels_vs_plain(device) -> None:
     """The lattice kernel on its card cases (_lattice_cases), the snapshot
     entry and map_chunk_sched with recenters: each == its plain version,
     bit for bit."""
-    before = launches()
+    before = launch_counts()
     cases = _lattice_cases(device)
     for name, args in cases.items():
         got = ml.match_lattice(*args)
@@ -1204,7 +1216,7 @@ def phase_slam_kernels_vs_plain(device) -> None:
     want = rx.replay_exact_plain(g0.clone(), rx.track_schedule(
         *x, UL_PROFILE), UL_PROFILE)
     check(torch.equal(got, want), "map_chunk_sched differs from plain")
-    n = {k: v - before[k] for k, v in launches().items()}
+    n = {k: v - before[k] for k, v in launch_counts().items()}
     check(n["match_lattice"] >= len(cases) and n["replay_exact_snap"] >= 2
           and n["replay_exact"] >= 1, f"launches {n}")
     say("kernel_vs_plain", kernel=["match_lattice", "replay_exact_snap",
@@ -1228,9 +1240,9 @@ def phase_slam_vs_jax(device) -> None:
     ref = testdata.reference("slam_bench_ref")
     frames = testdata.slam_bench_frames(4, device=device)
     for tag, cfg in SLAM_PROFILES.items():
-        before = launches()
+        before = launch_counts()
         res = sp.slam_replay(frames, cfg)
-        n = {k: v - before[k] for k, v in launches().items()}
+        n = {k: v - before[k] for k, v in launch_counts().items()}
         errs = {k: _track_err(getattr(res, k), ref[f"{tag}_{k}"])
                 for k in ("odo_track", "kf_nodes", "track")}
         sums = testdata.grid_sums(res.grid.cpu().numpy())
@@ -1372,82 +1384,35 @@ def _slam_kernels_alone(frames, cfg, smi: str, busy: dict) -> dict:
     return out
 
 
-# the SLAM stages' functions, timed by _stage_seconds
-STAGES = {"pass0": sp._odo_and_schedule, "pass1": sp._map_pass_nofb,
-          "pass1_fb": sp._map_pass_fb, "loop": sp._loop_stage,
-          "gn": sp._build_and_solve, "pass3": rx.map_chunk_sched}
+def _stage_table(fn) -> dict:
+    """The program's spans (utils/obs.py::span_table: each SLAM stage's
+    calls, seconds and share of the replay) and counters of one call of
+    fn under torch.profiler; host activity suffices, since each span
+    synchronises the card at its end."""
+    from torch.profiler import ProfilerActivity, profile
 
-
-def _stage_seconds(frames, cfg, reps: int = 3) -> dict:
-    """Seconds per SLAM stage in one slam_replay, each summed over its
-    calls, and the rest ("other": the glue between the stages), from the
-    fastest of `reps` replays.  Python's sys.monitoring reports each call
-    of a STAGES function and its return, and the card is synchronised at
-    both, so a stage's device work counts in it; the pipeline carries no
-    timing hook.  A stage called inside another (the feedback pass 1
-    lands its chunks through map_chunk_sched) counts in the outer one."""
-    mon = sys.monitoring
-    tool = mon.PROFILER_ID
-    names = {fn.__code__: name for name, fn in STAGES.items()}
-    active, secs = [], {}                 # stack of (code, start) | None
-
-    def on_start(code, _offset):
-        if active:
-            active.append(None)
-            return
-        torch.cuda.synchronize()
-        active.append((code, time.perf_counter()))
-
-    def on_return(code, _offset, _value):
-        entry = active.pop()
-        if entry is None:
-            return
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - entry[1]
-        secs[names[code]] = secs.get(names[code], 0.0) + dt
-
-    mon.use_tool_id(tool, "chip_smoke")
-    mon.register_callback(tool, mon.events.PY_START, on_start)
-    mon.register_callback(tool, mon.events.PY_RETURN, on_return)
-    for code in names:
-        mon.set_local_events(tool, code,
-                             mon.events.PY_START | mon.events.PY_RETURN)
-    runs = []
-    try:
-        for _ in range(reps):
-            secs.clear()
-            active.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sp.slam_replay(frames, cfg)
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-            runs.append({**secs, "other": total - sum(secs.values()),
-                         "total": total})
-    finally:
-        for code in names:
-            mon.set_local_events(tool, code, 0)
-        mon.register_callback(tool, mon.events.PY_START, None)
-        mon.register_callback(tool, mon.events.PY_RETURN, None)
-        mon.free_tool_id(tool)
-    return min(runs, key=lambda r: r["total"])
+    obs.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    spans, counts = obs.take()
+    return {"spans": obs.span_table(spans), "counters": counts}
 
 
 def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
                      reps: int = 3) -> dict:
     """bench.py's slam line for profile `tag` ("ul": B=128, "rt": B=256):
     best of `reps` after a warm-up, the checksum beside the TPU record and
-    the JAX package's CPU result, per-stage seconds, launches, device busy
-    ms and idle share.  For "ul", also the SLAM kernels alone; returns
+    the JAX package's CPU result, launches, device busy ms and idle share,
+    and the stage spans and counters of the profiled replay.  For "ul", also the SLAM kernels alone; returns
     their kernels-line entries."""
     cfg = SLAM_PROFILES[tag]
     frames = testdata.slam_bench_frames(B, T, device=device)
     torch.cuda.synchronize()
-    reset_launches()                      # count this path's run only
+    obs.take()                            # count this path's run only
     line, res = bench.bench_slam("acc" if tag == "ul" else "rt", B, T, reps,
                                  device, frames=frames)
     times = line["rep_seconds"]
-    n_launch = launches()
+    n_launch = launch_counts()
     for k in ("match_lattice", "replay_exact_snap", "replay_exact"):
         check(n_launch[k] >= reps + 1, f"slam {tag} never launched {k}")
     ck = checksum(res.grid)
@@ -1457,16 +1422,21 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     check(B % 4 == 0 and ck == want,
           f"slam {tag} checksum {ck} != the JAX package's CPU {want}")
     dt = min(times)
-    stages = _stage_seconds(frames, cfg)
+    obs.take()
     busy = _profiled_busy(lambda: sp.slam_replay(frames, cfg),
                           ("replay_exact", "match_lattice"), tag == "ul")
+    spans, counts = obs.take()            # the profiled replay's spans
+    stages = obs.span_table(spans)
+    check(stages["slam"]["calls"] == 1 and sum(
+        r["share_pct"] for k, r in stages.items() if k != "slam") >= 90,
+        f"slam {tag}: the stage spans cover under 90% of the replay")
     check(line["checksum"] == ck, "the bench line's checksum")
     say("bench", metric=METRIC[tag], value=B * T / dt, unit="frames/s",
         bench_line=line,
         profile=cfg.name, checksum=ck, checksum_ref=CHECKSUM_REF[tag],
         checksum_matches_ref=ck == CHECKSUM_REF[tag],
         checksum_jax_cpu=want, rep_seconds=times,
-        stage_seconds=stages,
+        stages=stages, counters=counts,
         launches={k: v for k, v in n_launch.items() if v},
         launches_per_replay={k: v / (reps + 1) for k, v in n_launch.items()
                              if v},
@@ -1475,8 +1445,7 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
         kernel_launches=busy["kernel_launches"],
         host_total=busy["host_total"],
         profiled_wall_s=busy["profiled_wall_s"],
-        device_idle_share=(None if busy["busy_ms"] is None
-                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        device_idle_share=_idle_share(busy, dt),
         B=B, T=T, reps=reps, card=smi)
     if tag != "ul":
         return {}
@@ -1513,8 +1482,7 @@ def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
         max_abs_err_x_vs_jax_cpu=err, rep_seconds=times,
         device_busy_ms=busy["busy_ms"], device_ops=busy["device_ops"],
         host_total=busy["host_total"],
-        device_idle_share=(None if busy["busy_ms"] is None
-                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        device_idle_share=_idle_share(busy, dt),
         B=B, T=T, reps=reps, card=smi)
 
 
@@ -1582,7 +1550,7 @@ def phase_map_step_vs_plain(device) -> None:
     """The map-step entry against map_step_plain, bit for bit, then the
     per-frame kernel names "pallas" and "pallas_db" (one map-step launch
     per frame) against kernel="xla" on the random flights."""
-    before = rx.map_step.launches
+    before = launch_counts()["map_step"]
     n_frames = 0
     cases = _map_step_cases(device)
     for name, (g0, frames) in cases.items():
@@ -1602,16 +1570,16 @@ def phase_map_step_vs_plain(device) -> None:
         else:
             check(int(got.max()) >= UL_PROFILE.map.lo_max - 10,
                   f"map_step {name}: no saturation")
-    launches = rx.map_step.launches - before
+    launches = launch_counts()["map_step"] - before
     check(launches == n_frames, f"map_step launched {launches} times for "
                                 f"{n_frames} frames")
     f = random_flights()
     T = f["x_m"].shape[1]
     routes = {}
     for kernel in ("pallas", "pallas_db"):
-        b = rx.map_step.launches
+        b = launch_counts()["map_step"]
         k = replay(f, device, kernel)
-        routes[kernel] = rx.map_step.launches - b
+        routes[kernel] = launch_counts()["map_step"] - b
         check(routes[kernel] == T, f"{kernel}: {routes[kernel]} map-step "
                                    f"launches for {T} frames")
         assert_same(k, replay(f, device, "xla"), f"{kernel} vs xla")
@@ -1629,10 +1597,10 @@ def phase_swarm_vs_jax(device) -> None:
     behaviour-state and cmd_kind traces, grids and frontier scores equal,
     true poses and EKF means within SWARM_TOL."""
     world, st, draws, ref = testdata.swarm_small(device)
-    before = rx.map_step.launches
+    before = launch_counts()["map_step"]
     fin, diag = sim.sim_run(st, world, testdata.SWARM_T, UL_PROFILE,
                             record=True, draws=draws, **testdata.SWARM_RUN)
-    n = rx.map_step.launches - before
+    n = launch_counts()["map_step"] - before
     host = lambda v: v.cpu().numpy()                                 # noqa: E731
     equal = {
         "state": np.array_equal(host(diag["state"]), ref["state"]),
@@ -1724,12 +1692,12 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     world, st0, _ = testdata.swarm_bench(device=device)
     B, T = testdata.SWARM_B, testdata.SWARM_T
     torch.cuda.synchronize()
-    reset_launches()                      # count this path's runs only
+    obs.take()                            # count this path's runs only
     # the warm-up run also keeps the scan ticks' operands for the kernel's
     # own check, time and bound (_map_step_alone)
     line, fin, diag, ticks = _bench_swarm_keeping_map_steps(world, st0, reps)
     times = line["rep_seconds"]
-    n_launch = launches()
+    n_launch = launch_counts()
     runs = reps + 1
     check(n_launch["map_step"] == 10 * runs,
           f"the swarm launched map_step {n_launch['map_step']} times in "
@@ -1763,8 +1731,7 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
         kernel_launches=busy["kernel_launches"],
         host_total=busy["host_total"],
         profiled_wall_s=busy["profiled_wall_s"],
-        device_idle_share=(None if busy["busy_ms"] is None
-                           else 1 - busy["busy_ms"] / (dt * 1e3)),
+        device_idle_share=_idle_share(busy, dt),
         final_state_counts=states.tolist(), B=B, T=T, reps=reps,
         dt_ms=testdata.SWARM_RUN["dt_ms"], card=smi)
     alone = _map_step_alone(ticks)
@@ -1794,11 +1761,11 @@ def _flat_state(d: dict, prefix: str = "") -> dict:
 
 
 def _path_launches(expect: dict, what: str) -> dict:
-    """The launch counts since the last reset_launches(): each kernel
+    """The launch counts since the counter table was last taken: each kernel
     named in `expect` launched as often as its value says (None: at least
     once), every other kernel never."""
     torch.cuda.synchronize()
-    n = launches()
+    n = launch_counts()
     for k, v in n.items():
         want = expect.get(k, 0)
         check(v >= 1 if want is None else v == want,
@@ -1824,7 +1791,7 @@ def _wire_replays(device, cap, log) -> dict:
     for kernel, key, name in (("residentx", "exact_grid", "replay_exact"),
                               ("hybridx", "hybrid_grid", "replay_cone")):
         torch.cuda.synchronize()
-        reset_launches()                  # count this replay_wirecap only
+        obs.take()                        # count this replay_wirecap only
         t0 = time.perf_counter()
         st, outs, n = ls.replay_wirecap(cap, UL_PROFILE, kernel=kernel,
                                         device=device)
@@ -1865,7 +1832,7 @@ def _wire_slam(device, cap) -> dict:
     frames = port.frames_to_torch(
         {k: v[None] for k, v in ls.wirecap_to_frames(cap).items()}, device)
     torch.cuda.synchronize()
-    reset_launches()                      # count this slam_replay only
+    obs.take()                            # count this slam_replay only
     t0 = time.perf_counter()
     res = sp.slam_replay(frames, UL_PROFILE)
     torch.cuda.synchronize()
@@ -2095,7 +2062,7 @@ def _fb_pass1(frames: dict, ref: dict, form: str) -> dict:
     sched = {k[12:]: tile(v) for k, v in ref.items()
              if k.startswith("pass1_sched_")}
     torch.cuda.synchronize()
-    reset_launches()
+    obs.take()
     grid, matched = sp._map_pass_fb(beams, tile(ref["pass1_odo"]), cfg,
                                     GEOM, cfg.slam.kf_every, sched)
     chunks = -(-T // (cfg.slam.kf_every * cfg.slam.match_chunk_intervals))
@@ -2119,8 +2086,8 @@ def phase_slam_feedback(device, smi: str, B: int = 128, T: int = 256,
     held to _fb_launches; each is bit-equal to the same run with the
     kernels' plain versions on the card, and agrees with the JAX
     package's CPU run on every flight (slam_fb_ref, _fb_vs_ref); then
-    `reps` timed runs give frames/s, and one more the seconds per
-    stage."""
+    `reps` timed runs give frames/s, and one more under the profiler the
+    stage spans."""
     ref = testdata.reference("slam_fb_ref")
     frames = testdata.slam_bench_frames(B, T, device=device)
     for form in FB_FORMS:
@@ -2128,7 +2095,7 @@ def phase_slam_feedback(device, smi: str, B: int = 128, T: int = 256,
         pass1 = _fb_pass1(frames, ref, form)
         want = _fb_launches(T, cfg)
         torch.cuda.synchronize()
-        reset_launches()                  # count this slam_replay only
+        obs.take()                        # count this slam_replay only
         res = sp.slam_replay(frames, cfg)
         counts = _path_launches(want, f"the {form} slam_replay")
         with _PlainKernels():
@@ -2149,7 +2116,8 @@ def phase_slam_feedback(device, smi: str, B: int = 128, T: int = 256,
             launches=counts, launches_expected=want,
             kernels_equal_plain=same, **vs, rep_seconds=times,
             frames_per_s=B * T / min(times),
-            stage_seconds=_stage_seconds(frames, cfg, reps=1), card=smi)
+            stages=_stage_table(lambda: sp.slam_replay(frames, cfg)),
+            card=smi)
 
 
 def phase_slam_chunked_vs_sequential(device) -> None:
@@ -2173,7 +2141,7 @@ def phase_slam_chunked_vs_sequential(device) -> None:
         cfg = _formulation(UL_PROFILE, form, match_min_quality=0.05)
         beams, _ = extract_beams(frames["grid_mm"], cfg.tof)
         torch.cuda.synchronize()
-        reset_launches()
+        obs.take()
         grid, matched = sp._map_pass_fb(beams, odo, cfg, GEOM, 8, sched)
         chunks = -(-odo.shape[1] // (8 * cfg.slam.match_chunk_intervals))
         counts = _path_launches({"match_lattice": chunks,

@@ -4,13 +4,14 @@
       | --wirecap cap.bin  [--kernel xla|residentx|hybridx|...] [--sharded]
       [--profile ul|cl] [--save-state CK] [--resume CK] [--out map.npy]
       [--pgm map.pgm [--pgm-raw]] [--ascii] [--navlog navlog.csv]
+      [--trace-dir DIR]
   python -m micro_quad_slam_tpu_torch fusion --log scanlog.bin [...]
       | --wirecap cap.bin  [--profile ul|cl|ul-rt] [--out track.csv]
   python -m micro_quad_slam_tpu_torch slam --log scanlog.bin [...]
       | --wirecap cap.bin  [--profile ul|cl|ul-rt] [--kf-every N]
       [--gn-iters N] [--slam-set KEY=VALUE ...] [--track track.csv]
       [--out map.npy] [--pgm map.pgm [--pgm-raw]] [--ascii]
-      [--save-state CK] [--resume CK]
+      [--save-state CK] [--resume CK] [--trace-dir DIR]
   python -m micro_quad_slam_tpu_torch sim [--quads N] [--seconds S]
       [--dt-ms MS] [--seed N] [--profile ul|cl] [--vision-flow]
       [--out-prefix PREFIX] [--emit-mavlink cmds.bin] [--save-state CK]
@@ -28,6 +29,10 @@ replay, fusion, slam, sim and bench run on the CUDA device; without one
 they exit with status 2 unless given --device cpu.  replay --sharded
 splits the logs over every visible CUDA device (parallel/mesh.py; with
 --device cpu, over the CPU once).  synth and info need no device.
+replay and slam --trace-dir DIR run the replay under torch.profiler
+(utils/obs.py::profile_trace): DIR/trace.json holds the Chrome trace with
+the replay's stage spans, DIR/spans.json each span's calls, seconds and
+share of its root and the counters, and one summary line goes to stderr.
 """
 
 from __future__ import annotations
@@ -158,7 +163,8 @@ def cmd_replay(args) -> int:
     from micro_quad_slam_tpu_torch.replay.mapping import (
         frames_to_torch, mapping_state_from_numpy, mapping_state_to_numpy,
         replay_mapping_batched)
-    from micro_quad_slam_tpu_torch.utils.obs import save_map_pgm
+    from micro_quad_slam_tpu_torch.utils.obs import (
+        profile_trace, save_map_pgm, summary_line)
 
     if not _one_input(args):
         return 2
@@ -193,15 +199,20 @@ def cmd_replay(args) -> int:
             print(f"--sharded needs the log count ({B}) to be a multiple "
                   f"of the device count ({len(devices)})", file=sys.stderr)
             return 2
-        state, outs, metrics = mesh.replay_mapping_sharded(
-            frames, _profile(args.profile), devices, kernel=args.kernel)
+    with profile_trace(args.trace_dir) as trace:
+        if args.sharded:
+            state, outs, metrics = mesh.replay_mapping_sharded(
+                frames, _profile(args.profile), devices, kernel=args.kernel)
+        else:
+            state, outs = replay_mapping_batched(
+                frames_to_torch(frames, device), _profile(args.profile),
+                kernel=args.kernel, state0=state0)
+    if args.trace_dir:
+        print(summary_line(trace), file=sys.stderr)
+    if args.sharded:
         print(f"sharded over {len(devices)} devices: "
               f"{int(metrics['frames_used'])} of "
               f"{int(metrics['frames_total'])} frames mapped")
-    else:
-        state, outs = replay_mapping_batched(
-            frames_to_torch(frames, device), _profile(args.profile),
-            kernel=args.kernel, state0=state0)
     if args.save_state:
         from micro_quad_slam_tpu_torch.utils.checkpoint import save_checkpoint
         p = save_checkpoint(args.save_state, mapping_state_to_numpy(state),
@@ -338,7 +349,8 @@ def cmd_slam(args) -> int:
     from micro_quad_slam_tpu_torch.ops.raycast import logical_grid
     from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
     from micro_quad_slam_tpu_torch.slam.pipeline import slam_replay
-    from micro_quad_slam_tpu_torch.utils.obs import save_map_pgm
+    from micro_quad_slam_tpu_torch.utils.obs import (
+        profile_trace, save_map_pgm, summary_line)
 
     if not _one_input(args):
         return 2
@@ -358,9 +370,12 @@ def cmd_slam(args) -> int:
         state0 = tuple(torch.from_numpy(np.asarray(v)).to(device)
                        for v in ck)
         print(f"resuming SLAM map from {path}")
-    res = slam_replay(frames_to_torch(frames, device), cfg,
-                      kf_every=args.kf_every, gn_iters=args.gn_iters,
-                      state0=state0)
+    with profile_trace(args.trace_dir) as trace:
+        res = slam_replay(frames_to_torch(frames, device), cfg,
+                          kf_every=args.kf_every, gn_iters=args.gn_iters,
+                          state0=state0)
+    if args.trace_dir:
+        print(summary_line(trace), file=sys.stderr)
     if args.save_state:
         from micro_quad_slam_tpu_torch.utils.checkpoint import save_checkpoint
         p = save_checkpoint(args.save_state,
@@ -524,6 +539,15 @@ def _add_map_images(sub, what: str) -> None:
                      help="grayscale log-odds PGM instead of trinary")
 
 
+def _add_trace_dir(sub) -> None:
+    sub.add_argument("--trace-dir", metavar="DIR",
+                     help="run the replay under torch.profiler and write "
+                          "DIR/trace.json (Chrome trace with the stage "
+                          "spans) and DIR/spans.json (each span's calls, "
+                          "seconds and share of its root; the counters); "
+                          "the spans synchronise the card at their ends")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m micro_quad_slam_tpu_torch",
                                 description=__doc__,
@@ -564,6 +588,7 @@ def main(argv=None) -> int:
                                      "(bit-identical to an unbroken replay; "
                                      "the JAX CLI's checkpoints too)")
     pr.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    _add_trace_dir(pr)
     pr.set_defaults(fn=cmd_replay)
 
     pf = sub.add_parser("fusion", help="scanlog -> EKF pose track")
@@ -598,6 +623,7 @@ def main(argv=None) -> int:
                                      "segment's map to continue in the same "
                                      "frame")
     ps.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    _add_trace_dir(ps)
     ps.set_defaults(fn=cmd_slam)
 
     pm = sub.add_parser("sim", help="closed-loop swarm simulation")

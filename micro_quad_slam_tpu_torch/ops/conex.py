@@ -50,7 +50,9 @@ from micro_quad_slam_tpu_torch.ops.residentx import (
     carry,
     check_operands,
     check_supported,
+    count_replay,
 )
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 
 H_EN, H_R0, H_C0 = 5, 6, 7
@@ -72,27 +74,29 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
 
     Returns (sched int32 [B, T, words_of(hybrid)], outs {used, kf_flags,
     filt} [B, T, ...], final (origin_x, origin_y, inited, filt))."""
-    beams, so, outs, final = carry(frames, cfg, state0)
+    with obs.span("replay.carry"):
+        beams, so, outs, final = carry(frames, cfg, state0)
     B, T = frames["x_m"].shape
     flat = lambda a: a.reshape((B * T,) + a.shape[2:])               # noqa: E731
-    inp = conemode.scan_inputs(
-        flat(beams), flat(frames["x_m"]), flat(frames["y_m"]),
-        flat(frames["yaw_deg"]), flat(so["ox"]), flat(so["oy"]),
-        flat(so["enabled"]), cfg.map, cfg.tof, geom, hybrid)
-    pcy, pcx = inp["pcy"] + geom.pad, inp["pcx"] + geom.pad
-    header = torch.stack([
-        pcy, pcx, flat(so["do"]).to(torch.int32), flat(so["sy"]),
-        flat(so["sx"]), inp["en"].to(torch.int32), pcy - geom.win_r,
-        pcx - geom.win_r], dim=-1)
-    floats = torch.cat([inp["oxc"][:, None], inp["oyc"][:, None],
-                        inp["packed"], inp["bounds"],
-                        torch.zeros((B * T, CONE_WORDS - W_BOUNDS - 18),
-                                    dtype=torch.float32, device=pcx.device)],
-                       dim=-1)
-    parts = [header, floats.view(torch.int32)]
-    if hybrid:
-        parts += [inp["ex"], inp["ey"], inp["ed"]]
-    sched = torch.cat(parts, dim=-1).reshape(B, T, -1).contiguous()
+    with obs.span("replay.rays"):
+        inp = conemode.scan_inputs(
+            flat(beams), flat(frames["x_m"]), flat(frames["y_m"]),
+            flat(frames["yaw_deg"]), flat(so["ox"]), flat(so["oy"]),
+            flat(so["enabled"]), cfg.map, cfg.tof, geom, hybrid)
+        pcy, pcx = inp["pcy"] + geom.pad, inp["pcx"] + geom.pad
+        header = torch.stack([
+            pcy, pcx, flat(so["do"]).to(torch.int32), flat(so["sy"]),
+            flat(so["sx"]), inp["en"].to(torch.int32), pcy - geom.win_r,
+            pcx - geom.win_r], dim=-1)
+        floats = torch.cat([inp["oxc"][:, None], inp["oyc"][:, None],
+                            inp["packed"], inp["bounds"],
+                            torch.zeros((B * T, CONE_WORDS - W_BOUNDS - 18),
+                                        dtype=torch.float32,
+                                        device=pcx.device)], dim=-1)
+        parts = [header, floats.view(torch.int32)]
+        if hybrid:
+            parts += [inp["ex"], inp["ey"], inp["ed"]]
+        sched = torch.cat(parts, dim=-1).reshape(B, T, -1).contiguous()
     return sched, outs, final
 
 
@@ -135,7 +139,8 @@ def replay_cone(grids: torch.Tensor, sched: torch.Tensor,
     """Apply a cone (or hybrid) schedule to grids int8 [B, PR, PC] in
     place and return them.  A CUDA tensor goes to the Hopper kernel
     (csrc/replay_cone.cu); a CPU tensor to replay_cone_plain; any other
-    device raises.  `replay_cone.launches` counts the kernel launches."""
+    device raises.  Each launch counts in the counter launches.replay_cone
+    (utils/obs.py)."""
     check_supported(cfg, geom)
     check_operands(grids, sched, geom, words_of(hybrid))
     if grids.device.type == "cpu":
@@ -170,11 +175,8 @@ def replay_cone(grids: torch.Tensor, sched: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"replay_cone kernel launch failed: CUDA error "
                            f"{err}")
-    replay_cone.launches += 1
+    obs.count("launches.replay_cone")
     return grids
-
-
-replay_cone.launches = 0
 
 
 def replay_conex(frames: dict, cfg: PipelineConfig,
@@ -184,19 +186,25 @@ def replay_conex(frames: dict, cfg: PipelineConfig,
     [B, T, ...] tensors (one device).  Returns (MappingState [B], outs
     [B, T]), bit-identical to the per-frame "cone" / "hybrid" replay,
     recenters and resume included.  state0 resumes a prior replay's
-    MappingState."""
+    MappingState.  While a torch profiler records it records the spans
+    replay, replay.carry, replay.rays and replay.kernel (utils/obs.py); it
+    counts replay.frames and replay.recenters (count_replay)."""
     from micro_quad_slam_tpu_torch.replay.mapping import (
         MappingState, check_replay_inputs)
 
     check_replay_inputs(frames, state0)
     dev = frames["x_m"].device
-    B = frames["x_m"].shape[0]
-    sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom, state0,
-                                                   hybrid)
-    if state0 is not None:
-        grids = state0.grid.to(dev).clone(memory_format=torch.contiguous_format)
-    else:
-        grids = torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
-                            device=dev)
-    replay_cone(grids, sched, cfg, hybrid, geom)
+    B, T = frames["x_m"].shape
+    with obs.span("replay", dev):
+        sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom,
+                                                       state0, hybrid)
+        if state0 is not None:
+            grids = state0.grid.to(dev).clone(
+                memory_format=torch.contiguous_format)
+        else:
+            grids = torch.zeros((B, geom.prows, geom.pcols),
+                                dtype=torch.int8, device=dev)
+        with obs.span("replay.kernel"):
+            replay_cone(grids, sched, cfg, hybrid, geom)
+        count_replay(sched, B * T)
     return MappingState(grids, ox, oy, inited, filt), outs

@@ -22,7 +22,7 @@ summation: the kernel is bit-equal to `match_lattice_plain`
 
 `match_lattice` launches the kernel on a CUDA tensor, runs
 `match_lattice_plain` on a CPU tensor, and raises on any other device.
-`match_lattice.launches` counts the kernel launches.
+Each launch counts in the counter launches.match_lattice (utils/obs.py).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from micro_quad_slam_tpu_torch.ops import _build
+from micro_quad_slam_tpu_torch.utils import obs
 
 
 def _check(slabs, ry, rx, n_yaw: int) -> int:
@@ -102,8 +103,5 @@ def match_lattice(slabs, ry, rx, n_yaw: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"match_lattice kernel launch failed: CUDA error "
                            f"{err}")
-    match_lattice.launches += 1
+    obs.count("launches.match_lattice")
     return out
-
-
-match_lattice.launches = 0

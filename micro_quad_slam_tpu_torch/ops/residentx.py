@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams, tof_filter_update
@@ -148,11 +149,15 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
 
     Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
     [B, T, ...], final (origin_x, origin_y, inited, filt))."""
-    beams, so, outs, final = carry(frames, cfg, state0)
+    with obs.span("replay.carry"):
+        beams, so, outs, final = carry(frames, cfg, state0)
     # everything below is carry-free: vectorized over [B, T]
-    rays = make_rays(beams, frames["x_m"], frames["y_m"], frames["yaw_deg"],
-                     so["ox"], so["oy"], so["enabled"], cfg.map, cfg.tof)
-    return _pack(rays, so["do"], so["sy"], so["sx"], geom), outs, final
+    with obs.span("replay.rays"):
+        rays = make_rays(beams, frames["x_m"], frames["y_m"],
+                         frames["yaw_deg"], so["ox"], so["oy"],
+                         so["enabled"], cfg.map, cfg.tof)
+        sched = _pack(rays, so["do"], so["sy"], so["sx"], geom)
+    return sched, outs, final
 
 
 def _pack(rays: dict, do, sy, sx, geom: GridGeom, r0s=None, c0s=None):
@@ -238,8 +243,8 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
                  geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:
     """Apply a schedule to grids int8 [B, PR, PC] in place and return
     them.  A CUDA tensor goes to the Hopper kernel (csrc/replay_exact.cu);
-    a CPU tensor to replay_exact_plain; any other device raises.
-    `replay_exact.launches` counts the kernel launches."""
+    a CPU tensor to replay_exact_plain; any other device raises.  Each
+    launch counts in the counter launches.replay_exact (utils/obs.py)."""
     check_supported(cfg, geom)
     check_operands(grids, sched, geom)
     if grids.device.type == "cpu":
@@ -269,11 +274,8 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"replay_exact kernel launch failed: CUDA error "
                            f"{err}")
-    replay_exact.launches += 1
+    obs.count("launches.replay_exact")
     return grids
-
-
-replay_exact.launches = 0
 
 
 def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
@@ -284,8 +286,8 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
     place.  A CUDA tensor goes to the kernel's snapshot entry
     (csrc/replay_exact.cu, mqs_replay_exact_snap), a CPU tensor to
     replay_exact_plain; any other device raises.  Every slab must lie in
-    the padded grid with its column a multiple of 16.
-    `replay_exact_snap.launches` counts the kernel launches."""
+    the padded grid with its column a multiple of 16.  Each launch counts
+    in launches.replay_exact_snap."""
     check_supported(cfg, geom)
     check_operands(grids, sched, geom)
     B, T = sched.shape[:2]
@@ -325,11 +327,8 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"replay_exact_snap kernel launch failed: CUDA "
                            f"error {err}")
-    replay_exact_snap.launches += 1
+    obs.count("launches.replay_exact_snap")
     return grids
-
-
-replay_exact_snap.launches = 0
 
 
 def _step_words(beams, x, y, yaw_deg, origin_x, origin_y, enabled,
@@ -365,8 +364,8 @@ def map_step(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
     and enabled [B].  A disabled quad, or one whose pose make_rays gates
     out, keeps its grid untouched.  A CUDA tensor goes to the kernel's
     map-step entry (csrc/replay_exact.cu, mqs_map_step), a CPU tensor to
-    map_step_plain; any other device raises.  Returns grids;
-    `map_step.launches` counts the kernel launches."""
+    map_step_plain; any other device raises.  Returns grids; each launch
+    counts in launches.map_step."""
     if grids.device.type == "cpu":
         return map_step_plain(grids, beams, x, y, yaw_deg, origin_x,
                               origin_y, enabled, cfg, geom)
@@ -390,11 +389,8 @@ def map_step(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
                  stream)
     if err != 0:
         raise RuntimeError(f"map_step kernel launch failed: CUDA error {err}")
-    map_step.launches += 1
+    obs.count("launches.map_step")
     return grids
-
-
-map_step.launches = 0
 
 
 def track_schedule(beams, x, y, yaw_deg, ox, oy, do, rsy, rsx,
@@ -511,18 +507,33 @@ def replay_residentx(frames: dict, cfg: PipelineConfig,
     """Whole exact replay: frames dict of [B, T, ...] tensors (one
     device).  Returns (MappingState [B], outs [B, T]), bit-identical to
     the per-frame replay and the golden C model, recenters and resume
-    included.  state0 resumes a prior replay's MappingState."""
+    included.  state0 resumes a prior replay's MappingState.  While a
+    torch profiler records it records the spans replay, replay.carry,
+    replay.rays and replay.kernel (utils/obs.py); it counts replay.frames
+    and replay.recenters (count_replay)."""
     from micro_quad_slam_tpu_torch.replay.mapping import (
         MappingState, check_replay_inputs)
 
     check_replay_inputs(frames, state0)
     dev = frames["x_m"].device
-    B = frames["x_m"].shape[0]
-    sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom, state0)
-    if state0 is not None:
-        grids = state0.grid.to(dev).clone(memory_format=torch.contiguous_format)
-    else:
-        grids = torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
-                            device=dev)
-    replay_exact(grids, sched, cfg, geom)
+    B, T = frames["x_m"].shape
+    with obs.span("replay", dev):
+        sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom,
+                                                       state0)
+        if state0 is not None:
+            grids = state0.grid.to(dev).clone(
+                memory_format=torch.contiguous_format)
+        else:
+            grids = torch.zeros((B, geom.prows, geom.pcols),
+                                dtype=torch.int8, device=dev)
+        with obs.span("replay.kernel"):
+            replay_exact(grids, sched, cfg, geom)
+        count_replay(sched, B * T)
     return MappingState(grids, ox, oy, inited, filt), outs
+
+
+def count_replay(sched: torch.Tensor, frames: int) -> None:
+    """A whole replay's counters: its flight-frames, and (while spans
+    record) the flight-frames whose recenter flag (0 or 1) is set."""
+    obs.count("replay.frames", frames)
+    obs.count("replay.recenters", sched[..., H_DO])

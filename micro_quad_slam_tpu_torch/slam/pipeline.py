@@ -28,6 +28,12 @@ This follows the JAX package's kernel branch (the one its tests hold
 bit-equal to its XLA branch); the device of the tensors picks the kernel
 (CUDA) or its plain version (CPU).  SlamConfig.slam_outer global rounds
 rebuild the match map at the solved track.
+
+A replay records the spans slam (the root), slam.pass0, slam.pass1,
+slam.loop, slam.gn, slam.track (the scale fit and track composition of a
+round) and slam.pass3 while a torch profiler records (utils/obs.py), and
+counts slam.frames and the loop stage's matches, near candidates and
+accepted edges.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from micro_quad_slam_tpu_torch.slam.posegraph import (
     se2_compose,
     se2_relative,
 )
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
 
 _F32 = np.float32
@@ -504,13 +511,17 @@ def _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom):
     n_cand = ic.shape[1]
     res = match_slabs(*args, cfg.map, cfg.tof, geom, s.loop_n_xy,
                       s.loop_n_yaw, s.match_xy_step_m, s.match_yaw_step_deg)
+    obs.count("slam.loop.matches", args[0].shape[0])
     pj_corr = torch.stack([res.x, res.y, res.yaw_deg * DEG2RAD],
                           dim=-1).reshape(B, n_cand * K, 3)
     zc = se2_relative(pi, pj_corr).reshape(B, n_cand, K, 3)
     q = res.quality.reshape(B, n_cand, K)
     ok = near & (q > _f(s.loop_min_quality))
     qc = torch.where(ok, q, torch.full_like(q, float("-inf")))
-    return _select_edges(ic, zc, qc, max(int(s.loop_edges), 1))
+    edges = _select_edges(ic, zc, qc, max(int(s.loop_edges), 1))
+    obs.count("slam.loop.near", near)
+    obs.count("slam.loop.edges", edges[2])
+    return edges
 
 
 def _build_and_solve(odo, matched, kf_idx, lij, lz, lok, lq, sc, cfg,
@@ -586,7 +597,8 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
 
     # pass 0: EKF odometry and the recenter schedule, decided grid-free
     # from the odometry track
-    odo, sched = _odo_and_schedule(frames, cfg, origin0)
+    with obs.span("slam.pass0"):
+        odo, sched = _odo_and_schedule(frames, cfg, origin0)
     if upto == 0:
         return odo, sched
 
@@ -594,7 +606,8 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     kf_ox, kf_oy = sched["ox"][:, kf_idx], sched["oy"][:, kf_idx]
 
     def run_loop(kfp):
-        return _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom)
+        with obs.span("slam.loop"):
+            return _loop_stage(kfp, kf_beams, kf_ox, kf_oy, cfg, geom)
 
     owner = (torch.arange(T, device=dev) // kf_every).clamp(0, K - 1)
     rel = se2_relative(odo[:, kf_idx][:, owner], odo)             # [B, T, 3]
@@ -607,20 +620,22 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
     gn_ref = int(s.gn_refine_iters) if int(s.gn_refine_iters) > 0 else None
     for rnd in range(n_outer):
         last = rnd == n_outer - 1
-        if s.match_map_kf_only and not s.match_feedback:
-            _, matched = _map_pass_nofb(
-                beams, est, cfg, geom, kf_every, sched, grid0=grid0,
-                n_iters=None if rnd == 0 else it_later)
-        else:
-            _, matched = _map_pass_fb(beams, est, cfg, geom, kf_every, sched,
-                                      grid0=grid0)
+        with obs.span("slam.pass1"):
+            if s.match_map_kf_only and not s.match_feedback:
+                _, matched = _map_pass_nofb(
+                    beams, est, cfg, geom, kf_every, sched, grid0=grid0,
+                    n_iters=None if rnd == 0 else it_later)
+            else:
+                _, matched = _map_pass_fb(beams, est, cfg, geom, kf_every,
+                                          sched, grid0=grid0)
         if last and upto == 1:
             return matched
         loop = run_loop(matched[:, kf_idx])
         if last and upto == 2:
             return (matched,) + loop[:3]
-        kf_nodes, gn_costs = _build_and_solve(odo, matched, kf_idx, *loop, sc,
-                                              cfg, gn_iters)
+        with obs.span("slam.gn"):
+            kf_nodes, gn_costs = _build_and_solve(odo, matched, kf_idx, *loop,
+                                                  sc, cfg, gn_iters)
         # refine rounds: re-run the loop stage at the solved nodes and
         # re-solve (warm-started with gn_refine_iters when that is set)
         n_ref = max(int(s.loop_refine if last else (
@@ -628,10 +643,11 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
             else s.loop_refine)), 0)
         for _ in range(n_ref):
             loop = run_loop(kf_nodes)
-            nodes, costs = _build_and_solve(
-                odo, matched, kf_idx, *loop, sc, cfg,
-                gn_iters if gn_ref is None else gn_ref,
-                nodes0=None if gn_ref is None else kf_nodes)
+            with obs.span("slam.gn"):
+                nodes, costs = _build_and_solve(
+                    odo, matched, kf_idx, *loop, sc, cfg,
+                    gn_iters if gn_ref is None else gn_ref,
+                    nodes0=None if gn_ref is None else kf_nodes)
             # gn_costs describes the solve that gave the returned nodes; a
             # shorter warm solve pads its trace with NaN
             if costs.shape[1] < gn_costs.shape[1]:
@@ -644,24 +660,29 @@ def _slam_impl(frames: dict, cfg: PipelineConfig, geom: GridGeom,
 
         # the per-flight odometry scale, refitted from the solved keyframe
         # steps, and every frame corrected rigidly from its keyframe
-        sol_kf_d = _norm2(torch.diff(kf_nodes[..., :2], dim=1))
-        # the sums in float64, rounded once: the same bits on every device
-        sc = ((odo_kf_d * sol_kf_d).double().sum(1).float()
-              / (odo_kf_d * odo_kf_d).double().sum(1).float().clamp_min(
-                  _f(1e-9))).clamp(_f(s.odo_scale_min), _f(s.odo_scale_max))
-        rel_sc = rel * torch.stack([sc, sc, torch.ones_like(sc)],
-                                   -1)[:, None, :]
-        track = se2_compose(kf_nodes[:, owner], rel_sc)
+        with obs.span("slam.track"):
+            sol_kf_d = _norm2(torch.diff(kf_nodes[..., :2], dim=1))
+            # the sums in float64, rounded once: the same bits on every
+            # device
+            sc = ((odo_kf_d * sol_kf_d).double().sum(1).float()
+                  / (odo_kf_d * odo_kf_d).double().sum(1).float().clamp_min(
+                      _f(1e-9))).clamp(_f(s.odo_scale_min),
+                                       _f(s.odo_scale_max))
+            rel_sc = rel * torch.stack([sc, sc, torch.ones_like(sc)],
+                                       -1)[:, None, :]
+            track = se2_compose(kf_nodes[:, owner], rel_sc)
         est = track
     if upto == 4:
         return track
 
     # pass 3: re-raster every frame from the corrected track, one launch
-    grids0 = (torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
-                          device=dev) if grid0 is None else grid0)
-    grid = map_chunk_sched(grids0, beams, track[..., 0], track[..., 1],
-                           track[..., 2] * RAD2DEG, sched["ox"], sched["oy"],
-                           sched["do"], sched["rsy"], sched["rsx"], cfg, geom)
+    with obs.span("slam.pass3"):
+        grids0 = (torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8,
+                              device=dev) if grid0 is None else grid0)
+        grid = map_chunk_sched(grids0, beams, track[..., 0], track[..., 1],
+                               track[..., 2] * RAD2DEG, sched["ox"],
+                               sched["oy"], sched["do"], sched["rsy"],
+                               sched["rsx"], cfg, geom)
     origin = (sched["ox"][:, -1], sched["oy"][:, -1])
     return SlamResult(grid, track, odo, kf_idx, kf_nodes, gn_costs, origin)
 
@@ -676,4 +697,7 @@ def slam_replay(frames: dict, cfg: PipelineConfig = UL_PROFILE,
     previous segment's (grid [B, prows, pcols], origin_x [B], origin_y
     [B]): its map and origins seed the matching pass and the re-raster, so
     a flight split across logs continues in the same frame."""
-    return _slam_impl(frames, cfg, geom, kf_every, gn_iters, state0)
+    with obs.span("slam", frames["x_m"].device):
+        res = _slam_impl(frames, cfg, geom, kf_every, gn_iters, state0)
+        obs.count("slam.frames", frames["x_m"].numel())
+    return res

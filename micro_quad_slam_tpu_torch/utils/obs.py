@@ -11,12 +11,31 @@ batched replay world (SURVEY.md §2E / §5.5).
                           (clean:288-323, 2186-2336)
   E7 flight_data.csv   -> FlightDataWriter (clean:141-146, 2645-2659)
 
-Plus the rebuild-native additions: per-run metrics counters and a
-profiler trace context.
+Plus the port's tracer: stage spans and counters inside the replays.
 
-The port's copy of micro_quad_slam_tpu/utils/obs.py (numpy only), with
-profile_trace on torch.profiler instead of jax.profiler;
-tests/test_torch_obs.py holds every function's output equal to the
+  span(name, device)
+                  a stage of a replay.  It records only while a torch
+                  profiler is recording in the process; then it is a
+                  record_function range (a user_annotation event on the
+                  profiler's clock), synchronises its device at its exit
+                  so that its end is the end of its device work, and is
+                  kept in memory with its id, its parent's id, its root's
+                  id and its start and end (time.perf_counter_ns).  A
+                  span without a device takes its parent's; a CUDA device
+                  is synchronised itself, anything else is the current
+                  CUDA device (if CUDA is initialised).
+                  Otherwise it is one flag check and a shared no-op.
+  count(name, n)  a counter: a host integer is always counted; a device
+                  tensor only while spans record, summed on the card and
+                  read once when the root span exits.
+  counters()      the counter table; take() returns the spans and the
+                  counters and clears them.
+  profile_trace   the operator's exporter: trace.json and spans.json
+                  (each span name's calls, total and self seconds and
+                  share of its root, the counters, the card).
+
+The rest is the port's copy of micro_quad_slam_tpu/utils/obs.py (numpy
+only); tests/test_torch_obs.py holds every function's output equal to the
 original's.
 """
 
@@ -24,11 +43,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import time
 from collections import deque
-from typing import Optional, TextIO
+from typing import NamedTuple, Optional, TextIO
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _profiler
 
 STATE_NAMES_UL = (
     "WAIT_LINK", "IDLE", "ARMING", "TAKEOFF", "LIFTOFF_ASSIST",
@@ -201,48 +223,219 @@ class FlightDataWriter:
         self._f.close()
 
 
-class MetricsCounter:
-    """Per-run throughput metrics (the rebuild's frames/sec counters)."""
+class Span(NamedTuple):
+    """One recorded span.  Ids count up from 1 in order of opening; a
+    root span's parent is 0 and its root is itself.  start_ns and end_ns
+    are time.perf_counter_ns() readings."""
+
+    name: str
+    id: int
+    parent: int
+    root: int
+    start_ns: int
+    end_ns: int
+
+
+class _NoSpan:
+    """The span while no profiler records: a shared no-op context."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    """A span while a profiler records (Tracer.span)."""
+
+    __slots__ = ("_tr", "_name", "_device", "_id", "_parent", "_root",
+                 "_start", "_rf")
+
+    def __init__(self, tracer: "Tracer", name: str, device):
+        self._tr, self._name, self._device = tracer, name, device
+
+    def __enter__(self):
+        tr = self._tr
+        tr._last_id += 1
+        self._id = tr._last_id
+        if tr._open:
+            up = tr._open[-1]
+            self._parent, self._root = up._id, up._root
+            if self._device is None:
+                self._device = up._device
+        else:
+            self._parent, self._root = 0, self._id
+        tr._open.append(self)
+        self._rf = _profiler.record_function(self._name)
+        self._rf.__enter__()
+        self._start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        tr = self._tr
+        try:
+            if exc_type is None:
+                if not self._parent:
+                    tr._read_device()
+                # the span ends when its device work has ended
+                dev = self._device
+                if dev is not None and torch.device(dev).type == "cuda":
+                    torch.cuda.synchronize(dev)
+                elif torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                tr.spans.append(Span(self._name, self._id, self._parent,
+                                     self._root, self._start,
+                                     time.perf_counter_ns()))
+        finally:
+            tr._open.pop()
+            self._rf.__exit__(exc_type, exc, tb)
+        return False
+
+
+class Tracer:
+    """The spans and counters of the replays in one process; the module's
+    span, count, counters and take use one shared instance."""
 
     def __init__(self):
-        self.t0 = time.perf_counter()
-        self.frames = 0
-        self.cells = 0
+        self.spans: list = []
+        self.counts: dict = {}
+        self._device: dict = {}     # counters of device values, not read yet
+        self._open: list = []       # the open spans, innermost last
+        self._last_id = 0
 
-    def add(self, frames: int, cells_per_frame: int = 1280):
-        self.frames += frames
-        self.cells += frames * cells_per_frame
+    def span(self, name: str, device=None):
+        """A context that records the stage `name` of work on `device`
+        while a torch profiler records, and does nothing else otherwise
+        (module docstring)."""
+        if not _profiler._is_profiler_enabled:
+            return _NO_SPAN
+        return _OpenSpan(self, name, device)
 
-    def summary(self) -> dict:
-        dt = max(time.perf_counter() - self.t0, 1e-9)
-        return {
-            "frames": self.frames,
-            "wall_s": round(dt, 3),
-            "frames_per_sec": round(self.frames / dt, 1),
-            "cell_ops_per_sec": round(self.cells / dt, 1),
-        }
+    def count(self, name: str, n=1) -> None:
+        """Add n to the counter `name`: a host integer always; a device
+        tensor (summed over its elements) only while spans record, on the
+        card until the root span exits or the table is read."""
+        if not isinstance(n, torch.Tensor):
+            self.counts[name] = self.counts.get(name, 0) + int(n)
+        elif _profiler._is_profiler_enabled:
+            prev = self._device.get(name)
+            n = n.sum()
+            self._device[name] = n if prev is None else prev + n
+
+    def _read_device(self) -> None:
+        """The device counters into the table, in one copy."""
+        if not self._device:
+            return
+        dev = next(iter(self._device.values())).device
+        vals = torch.stack([v.to(dev, torch.int64)
+                            for v in self._device.values()]).tolist()
+        for name, v in zip(self._device, vals):
+            self.counts[name] = self.counts.get(name, 0) + v
+        self._device.clear()
+
+    def counters(self) -> dict:
+        """A copy of the counter table."""
+        self._read_device()
+        return dict(self.counts)
+
+    def take(self) -> tuple:
+        """(spans in order of opening, counters); both are cleared."""
+        self._read_device()
+        spans = sorted(self.spans, key=lambda s: s.id)
+        counts = self.counts
+        self.spans, self.counts = [], {}
+        return spans, counts
+
+
+_TRACER = Tracer()
+span = _TRACER.span
+count = _TRACER.count
+counters = _TRACER.counters
+take = _TRACER.take
+
+
+def span_table(spans) -> dict:
+    """Per span name, in order of first opening: calls, total seconds,
+    self seconds (less the time of the spans it opened) and the share of
+    its roots' seconds in percent (None without its roots)."""
+    dur = {s.id: s.end_ns - s.start_ns for s in spans}
+    inner = {}
+    for s in spans:
+        if s.parent:
+            inner[s.parent] = inner.get(s.parent, 0) + dur[s.id]
+    acc = {}
+    for s in sorted(spans, key=lambda s: s.id):
+        a = acc.setdefault(s.name, [0, 0, 0, set()])
+        a[0] += 1
+        a[1] += dur[s.id]
+        a[2] += dur[s.id] - inner.get(s.id, 0)
+        a[3].add(s.root)
+    out = {}
+    for name, (calls, total, own, roots) in acc.items():
+        root_ns = sum(dur.get(r, 0) for r in roots)
+        out[name] = {"calls": calls, "total_s": total * 1e-9,
+                     "self_s": own * 1e-9,
+                     "share_pct": 100.0 * total / root_ns if root_ns else None}
+    return out
+
+
+def summary_line(summary: dict) -> str:
+    """profile_trace's summary as one line: each root span's calls and
+    seconds with its stages' shares, then the counters."""
+    table = summary.get("spans", {})
+    parts = []
+    for name, r in table.items():
+        if "." not in name:
+            stages = ", ".join(
+                f"{k} {v['share_pct']:.1f}%" for k, v in table.items()
+                if k.startswith(name + ".") and v["share_pct"] is not None)
+            parts.append(f"{name} {r['calls']}x {r['total_s']:.4f} s"
+                         + (f" ({stages})" if stages else ""))
+    counts = " ".join(f"{k}={v}" for k, v in summary.get("counters",
+                                                          {}).items())
+    return (f"trace {summary.get('logdir')} on {summary.get('card')}: "
+            + ("; ".join(parts) or "no spans")
+            + (f"; counters {counts}" if counts else ""))
 
 
 @contextlib.contextmanager
 def profile_trace(logdir: Optional[str]):
     """torch.profiler trace context (no-op when logdir is None): the host
     and, where a CUDA device is present, the device activity of the block,
-    written as a Chrome trace to logdir/trace.json on exit."""
+    with the spans recorded in it.  The store is cleared on entry; on
+    exit logdir/trace.json holds the Chrome trace and logdir/spans.json
+    the summary: per span name its calls, total and self seconds and
+    share of its root (span_table), the counters and the card.  Yields
+    that summary as a dict, filled on exit."""
+    summary: dict = {}
     if logdir is None:
-        yield
+        yield summary
         return
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    take()
     with profile(activities=activities) as prof:
-        yield
+        yield summary
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    summary.update(
+        logdir=logdir,
+        card=(torch.cuda.get_device_name() if torch.cuda.is_initialized()
+              else "cpu"),
+        spans=span_table(_TRACER.spans), counters=counters())
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump(summary, f, indent=1)
 
 
 def map_divergence(grid_a, grid_b, occ_thresh: int = 10,

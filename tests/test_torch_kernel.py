@@ -24,9 +24,14 @@ from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams
 from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
 from micro_quad_slam_tpu_torch.ops.scanmatch import window_origin
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(kernel: str) -> int:
+    return obs.counters().get(f"launches.{kernel}", 0)
 
 
 @pytest.fixture
@@ -60,10 +65,10 @@ def test_kernel_bit_equals_plain_on_the_card(cuda):
     sched, outs, _ = rx.schedule(_flights(cuda), UL_PROFILE)
     assert outs["kf_flags"].any()
     g0 = _random_grids(cuda)
-    before = rx.replay_exact.launches
+    before = _launches("replay_exact")
     got = rx.replay_exact(g0.clone(), sched, UL_PROFILE)
     torch.cuda.synchronize()
-    assert rx.replay_exact.launches == before + 1
+    assert _launches("replay_exact") == before + 1
     want = rx.replay_exact_plain(g0.clone(), sched, UL_PROFILE)
     assert torch.equal(got, want)
 
@@ -73,10 +78,10 @@ def test_cone_kernel_bit_equals_plain_on_the_card(cuda, hybrid):
     sched, outs, _ = cx.schedule(_flights(cuda), UL_PROFILE, hybrid=hybrid)
     assert outs["kf_flags"].any()
     g0 = _random_grids(cuda)
-    before = cx.replay_cone.launches
+    before = _launches("replay_cone")
     got = cx.replay_cone(g0.clone(), sched, UL_PROFILE, hybrid)
     torch.cuda.synchronize()
-    assert cx.replay_cone.launches == before + 1
+    assert _launches("replay_cone") == before + 1
     want = cx.replay_cone_plain(g0.clone(), sched, UL_PROFILE, hybrid)
     assert torch.equal(got, want)
 
@@ -113,10 +118,10 @@ def test_match_kernel_bit_equals_plain_on_the_card(cuda, shape, n_yaw, T):
     rx_ = torch.randint(-1, SC + 2, (N, n_yaw * T, 32), generator=g,
                         dtype=torch.int32)
     args = [a.to(cuda) for a in (slabs, ry, rx_)]
-    before = ml.match_lattice.launches
+    before = _launches("match_lattice")
     got = ml.match_lattice(*args, n_yaw)
     torch.cuda.synchronize()
-    assert ml.match_lattice.launches == before + 1
+    assert _launches("match_lattice") == before + 1
     assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
 
 
@@ -168,10 +173,10 @@ def test_match_kernel_edge_cases_on_the_card(cuda, shape, n_yaw, N, kind,
             args[i] = buf[1:].view(args[i].shape)
             args[i].copy_(_lattice(N, shape, n_yaw, N + n_yaw, kind)[i])
             assert args[i].data_ptr() % 16
-    before = ml.match_lattice.launches
+    before = _launches("match_lattice")
     got = ml.match_lattice(*args, n_yaw)
     torch.cuda.synchronize()
-    assert ml.match_lattice.launches == before + 1
+    assert _launches("match_lattice") == before + 1
     assert torch.equal(got, ml.match_lattice_plain(*args, n_yaw))
 
 
@@ -197,10 +202,10 @@ def test_match_lattice_refuses_lattices_the_kernel_does_not_take(
     launched; the plain version takes them all."""
     slabs = torch.zeros((N, SR, SC), dtype=torch.int8, device=cuda)
     idx = torch.zeros((N, n_yaw * T, NB), dtype=torch.int32, device=cuda)
-    before = ml.match_lattice.launches
+    before = _launches("match_lattice")
     with pytest.raises(ValueError, match="does not take"):
         ml.match_lattice(slabs, idx, idx, n_yaw)
-    assert ml.match_lattice.launches == before
+    assert _launches("match_lattice") == before
     assert not ml.match_lattice_plain(slabs, idx, idx, n_yaw).any()
 
 
@@ -232,10 +237,10 @@ def _check_snapshot_entry(cuda, jump):
                              250)
     wy0, wx0 = window_origin(pcx, pcy, port.DEFAULT_GEOM)
     g0 = _random_grids(cuda)
-    before = rx.replay_exact_snap.launches
+    before = _launches("replay_exact_snap")
     got = rx.map_snap(g0, *args, wy0, wx0, 4, UL_PROFILE)
     torch.cuda.synchronize()
-    assert rx.replay_exact_snap.launches == before + 1
+    assert _launches("replay_exact_snap") == before + 1
     want = rx.map_snap_plain(g0, *args, wy0, wx0, 4, UL_PROFILE)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not torch.equal(got[1][0, 4], got[1][0, 3])
@@ -254,9 +259,9 @@ def test_snapshot_chunks_after_tile_reloads_bit_equal_plain_on_the_card(cuda):
 def test_map_chunk_sched_kernel_equals_plain_on_the_card(cuda):
     args = _slots(cuda)
     g0 = _random_grids(cuda)
-    before = rx.replay_exact.launches
+    before = _launches("replay_exact")
     got = rx.map_chunk_sched(g0, *args, UL_PROFILE)
-    assert rx.replay_exact.launches == before + 1
+    assert _launches("replay_exact") == before + 1
     sched = rx.track_schedule(*args, UL_PROFILE)
     want = rx.replay_exact_plain(g0.clone(), sched, UL_PROFILE)
     assert torch.equal(got, want)
@@ -278,10 +283,10 @@ def test_map_step_bit_equals_plain_on_the_card(cuda):
     en[3] = False
     args = [a.to(cuda) for a in (beams, x, y, yaw, z, z, en)]
     g0 = _random_grids(cuda, B)
-    before = rx.map_step.launches
+    before = _launches("map_step")
     got = rx.map_step(g0.clone(), *args, UL_PROFILE)
     torch.cuda.synchronize()
-    assert rx.map_step.launches == before + 1
+    assert _launches("map_step") == before + 1
     assert torch.equal(got, rx.map_step_plain(g0.clone(), *args, UL_PROFILE))
     assert torch.equal(got[3], g0[3]) and not torch.equal(got, g0)
 
@@ -319,9 +324,9 @@ def test_tile_cases_bit_equal_plain_on_the_card(cuda, case, kernel, plain):
 @pytest.mark.parametrize("kernel", ["pallas", "pallas_db"])
 def test_per_frame_pallas_routes_equal_xla_on_the_card(cuda, kernel):
     frames = _flights(cuda)
-    before = rx.map_step.launches
+    before = _launches("map_step")
     got = port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
-    assert rx.map_step.launches == before + frames["x_m"].shape[1]
+    assert _launches("map_step") == before + frames["x_m"].shape[1]
     _assert_same(got, port.replay_mapping_batched(frames, UL_PROFILE,
                                                   kernel="xla"))
 
@@ -333,10 +338,10 @@ def test_swarm_small_equals_jax_on_the_card(cuda):
     from micro_quad_slam_tpu_torch.models.simulator import sim_run
 
     world, st, draws, ref = testdata.swarm_small(cuda)
-    before = rx.map_step.launches
+    before = _launches("map_step")
     fin, diag = sim_run(st, world, testdata.SWARM_T, UL_PROFILE, record=True,
                         draws=draws, **testdata.SWARM_RUN)
-    assert rx.map_step.launches == before + 10
+    assert _launches("map_step") == before + 10
     assert torch.equal(diag["state"].cpu(), torch.from_numpy(ref["state"]))
     assert torch.equal(diag["cmd_kind"].cpu(),
                        torch.from_numpy(ref["cmd_kind"]))

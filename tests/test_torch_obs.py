@@ -109,17 +109,6 @@ def test_flight_data_writer_bytes_equal_jax(tmp_path):
     assert tobs.FlightDataWriter.HEADER == jobs.FlightDataWriter.HEADER
 
 
-def test_metrics_counter_as_jax():
-    t, j = tobs.MetricsCounter(), jobs.MetricsCounter()
-    for m in (t, j):
-        m.add(100)
-        m.add(7, cells_per_frame=64)
-    st, sj = t.summary(), j.summary()
-    assert st.keys() == sj.keys()
-    assert (st["frames"], t.cells) == (sj["frames"], j.cells) == (107, 128448)
-    assert st["frames_per_sec"] > 0
-
-
 def _grids(seed: int):
     rng = np.random.default_rng(seed)
     a = rng.integers(-127, 128, (60, 50)).astype(np.int8)

@@ -24,6 +24,7 @@ from micro_quad_slam_tpu_torch.formats import scanlog as tscanlog
 from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import raycast as tr
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils import config as tconfig
 from micro_quad_slam_tpu_torch.utils.config import (MapConfig, TofConfig,
                                                     UL_PROFILE)
@@ -338,10 +339,11 @@ def test_exact_kernel_checks_operands_and_devices():
     meta = torch.zeros((2, 608, 640), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no exact replay kernel"):
         rx.replay_exact(meta, sched.to("meta"), UL_PROFILE)
-    before = rx.replay_exact.launches
+    before = obs.counters().get("launches.replay_exact", 0)
     rx.replay_exact(torch.zeros((2, 608, 640), dtype=torch.int8), sched,
                     UL_PROFILE)
-    assert rx.replay_exact.launches == before      # the CPU path launches none
+    # the CPU path launches none
+    assert obs.counters().get("launches.replay_exact", 0) == before
 
 
 @pytest.mark.parametrize("case", ["lo_min_above_zero",
@@ -370,9 +372,10 @@ def test_cone_kernel_checks_operands_and_devices():
     meta = torch.zeros((2, 608, 640), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no cone replay kernel"):
         cx.replay_cone(meta, sched.to("meta"), UL_PROFILE)
-    before = cx.replay_cone.launches
+    before = obs.counters().get("launches.replay_cone", 0)
     cx.replay_cone(grids, sched, UL_PROFILE)
-    assert cx.replay_cone.launches == before       # the CPU path launches none
+    # the CPU path launches none
+    assert obs.counters().get("launches.replay_cone", 0) == before
 
 
 @pytest.mark.parametrize("kernel", ["resident", "pallas", "pallas_db", "mxu",

@@ -241,6 +241,7 @@ def test_map_step_plain_matches_pallas_map_step_and_xla():
     from micro_quad_slam_tpu.ops.pallas_residentx import pallas_map_step
     from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
     from micro_quad_slam_tpu_torch.ops import residentx as rx
+    from micro_quad_slam_tpu_torch.utils import obs
     from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
     grids, args = _map_step_case()
@@ -254,10 +255,11 @@ def test_map_step_plain_matches_pallas_map_step_and_xla():
     targs = [T_(a) for a in args]
     got = rx.map_step_plain(T_(grids.copy()), *targs, UL_PROFILE)
     np.testing.assert_array_equal(got.numpy(), want)
-    before = rx.map_step.launches
+    before = obs.counters().get("launches.map_step", 0)
     np.testing.assert_array_equal(
         rx.map_step(T_(grids.copy()), *targs, UL_PROFILE).numpy(), want)
-    assert rx.map_step.launches == before          # the CPU path launches none
+    # the CPU path launches none
+    assert obs.counters().get("launches.map_step", 0) == before
     np.testing.assert_array_equal(want[3], grids[3])        # disabled
     np.testing.assert_array_equal(want[-2:], grids[-2:])    # over the edge
     assert (want != grids).sum() > 500

@@ -25,6 +25,7 @@ from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.replay import mapping as tm
+from micro_quad_slam_tpu_torch.utils import obs
 
 torch.set_num_threads(2)
 
@@ -168,9 +169,9 @@ def test_schedule_words(hybrid):
     if hybrid:
         ed = sched[..., cx.W_ED:cx.W_ED + 32]
         assert int((ed == port.UL_PROFILE.map.lo_occ_inc).sum()) > 100
-    before = cx.replay_cone.launches
+    before = obs.counters().get("launches.replay_cone", 0)
     grids = torch.zeros((B, geom.prows, geom.pcols), dtype=torch.int8)
     cx.replay_cone(grids, sched, port.UL_PROFILE, hybrid)
-    assert cx.replay_cone.launches == before
+    assert obs.counters().get("launches.replay_cone", 0) == before
     want, _ = _port(_two_flights(), "hybrid" if hybrid else "cone")
     assert torch.equal(grids, want.grid)

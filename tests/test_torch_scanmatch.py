@@ -30,6 +30,7 @@ from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.ops import scanmatch as tsm
 from micro_quad_slam_tpu_torch.ops.raycast import DEFAULT_GEOM as GEOM
 from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
 torch.set_num_threads(2)
@@ -99,11 +100,11 @@ def test_match_lattice_plain_bit_equals_pallas(shape, n_xy, n_yaw):
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     # the wrapper runs the plain version on the CPU, and launches nothing
-    before = ml.match_lattice.launches
+    before = obs.counters().get("launches.match_lattice", 0)
     np.testing.assert_array_equal(
         ml.match_lattice(torch.from_numpy(slabs), torch.from_numpy(ry),
                          torch.from_numpy(rx_), n_yaw).numpy(), want)
-    assert ml.match_lattice.launches == before
+    assert obs.counters().get("launches.match_lattice", 0) == before
 
 
 def test_match_lattice_checks_operands_and_devices():

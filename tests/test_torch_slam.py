@@ -43,6 +43,7 @@ from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
 from micro_quad_slam_tpu_torch.ops.scanmatch import window_origin
 from micro_quad_slam_tpu_torch.replay.fusion import RAD2DEG
 from micro_quad_slam_tpu_torch.slam import pipeline as sp
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE, UL_RT_PROFILE
 from micro_quad_slam_tpu_torch.utils.obs import map_iou_vs_walls
 
@@ -99,9 +100,9 @@ def test_map_snap_bit_equals_pallas_map_snap():
     np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     # the wrapper takes the plain version on the CPU, launching nothing
-    before = rx.replay_exact_snap.launches
+    before = obs.counters().get("launches.replay_exact_snap", 0)
     wg, ws = rx.map_snap(torch.from_numpy(g), *args)
-    assert rx.replay_exact_snap.launches == before
+    assert obs.counters().get("launches.replay_exact_snap", 0) == before
     assert torch.equal(wg, tg) and torch.equal(ws, ts)
     # the chunk-start slab of flight 0's second chunk is the rolled grid
     assert not torch.equal(ts[0, 4], ts[0, 3])
