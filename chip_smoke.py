@@ -10,7 +10,8 @@ the SLAM replay (slam_replay: EKF odometry, scan matching, pose graph,
 re-raster) and the closed-loop swarm simulator (models/simulator.py), and
 builds and checks their hand-written CUDA kernels (csrc/replay_exact.cu
 with its snapshot and map-step entries, csrc/replay_cone.cu,
-csrc/match_lattice.cu).  Each phase prints one line and raises on
+csrc/match_lattice.cu, and the replays' carry kernel, csrc/carry.cuh,
+which both replay libraries export).  Each phase prints one line and raises on
 failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -19,7 +20,11 @@ failure; nothing falls back to the CPU.  Phases:
      memory, spills (-Xptxas=-v), blocks per SM (the occupancy
      calculator; for the lattice kernel, at both SLAM lattices) and SASS
      opcode counts (cuobjdump);
-  3. exact kernel == plain torch on the card, bit for bit (grid, origins,
+  3. the carry kernel (csrc/carry.cuh) of both replay libraries ==
+     carry_plain on the card, bit for bit (every output and the final
+     carry), on the replay cases below, and resumed at frame 30 == the
+     whole run; then
+     exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames, short beams, and
      the resident-tile flights (testdata.tile_flights: a tile reload on
@@ -59,7 +64,9 @@ failure; nothing falls back to the CPU.  Phases:
      device busy and idle share, and the lattice kernel
      and snapshot entry alone against their plain versions and bounds,
      with the lattice kernel's ratio to its bound and build facts);
-     and the EKF bench at B=1024.  The hybridx grids' per-flight sums
+     and the EKF bench at B=1024; the carry kernel alone on the
+     bench frames (ms a launch, device ms, carry_plain's ms, the bytes
+     bound).  The hybridx grids' per-flight sums
      must equal the JAX package's hybrid replay's, and the SLAM checksums
      the JAX package's CPU results;
   8. the swarm: the committed JAX small swarm (bench.py's swarm at B=8,
@@ -184,11 +191,17 @@ KERNELS = {
         # :212 _window_kernel_db (kernel names pallas, pallas_db) route to it
         "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
         "replaces": "micro_quad_slam_tpu/ops/pallas_residentx.py:1662"},
+    "carry": {
+        # the replay's sequential carry, exported by both replay libraries;
+        # the counterpart of the carry lax.scan that feeds the TPU kernels
+        # (no Pallas kernel of its own)
+        "source": "micro_quad_slam_tpu_torch/csrc/carry.cuh",
+        "replaces": "micro_quad_slam_tpu/ops/pallas_resident.py:139"},
 }
 # the kernels whose wrappers count each launch in the counter
 # launches.<name> (utils/obs.py)
 LAUNCHED = ("replay_exact", "replay_cone", "match_lattice",
-            "replay_exact_snap", "map_step")
+            "replay_exact_snap", "map_step", "carry")
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -273,16 +286,35 @@ def launch_counts() -> dict:
     return {name: c.get(f"launches.{name}", 0) for name in LAUNCHED}
 
 
+def _leaves(x, name: str = "") -> list:
+    """(name, tensor) of every tensor in nested tuples, named tuples and
+    dicts (a dict's keys in sorted order)."""
+    if torch.is_tensor(x):
+        return [(name, x)]
+    items = (sorted(x.items()) if isinstance(x, dict) else
+             zip(getattr(x, "_fields", map(str, range(len(x)))), x))
+    return [leaf for k, v in items
+            for leaf in _leaves(v, f"{name}.{k}" if name else k)]
+
+
+def _bits(v: torch.Tensor) -> torch.Tensor:
+    """v as int64: a float by its bits, every NaN as one value."""
+    if not v.is_floating_point():
+        return v.to(torch.int64)
+    as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = v.view(as_int[v.element_size()]).to(torch.int64)
+    return torch.where(torch.isnan(v), -1, bits)
+
+
 def assert_same(a, b, what: str) -> None:
-    """Bit-equality of two replays' (state, outs) pairs."""
-    (sa, oa), (sb, ob) = a, b
-    pairs = [(f, getattr(sa, f), getattr(sb, f)) for f in sa._fields]
-    pairs += [(k, oa[k], ob[k]) for k in oa]
-    for name, x, y in pairs:
-        x, y = x.cpu().numpy(), y.cpu().numpy()
-        same = (np.array_equal(x, y, equal_nan=True) if x.dtype.kind == "f"
-                else np.array_equal(x, y))
-        if not same:
+    """Bit-equality of two results: a replay's (state, outs) or a carry's
+    (outputs, final), tensors in nested tuples, named tuples and dicts."""
+    la, lb = _leaves(a), _leaves(b)
+    check([n for n, _ in la] == [n for n, _ in lb],
+          f"{what}: the results hold different tensors")
+    for (name, x), (_, y) in zip(la, lb):
+        if not (x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(_bits(x), _bits(y))):
             raise AssertionError(f"{what}: {name} differs")
 
 
@@ -396,18 +428,22 @@ def _sass_counts(path) -> dict:
             for f, c in out.items()}
 
 
-# the redesigned kernels' occupancy queries: source -> (C entry, {function:
-# its argument, or {label: argument} for a kernel launched at several
-# shapes})
+# the kernels' occupancy queries: source -> {function: (its C entry, the
+# entry's argument, or {label: argument} for a kernel launched at several
+# shapes)}; the carry entry takes none
 OCCUPANCY = {
-    "replay_exact": ("mqs_replay_exact_blocks_per_sm",
-                     {"replay_exact_kernel<false>": 0,
-                      "replay_exact_kernel<true>": 1, "map_step_kernel": 2}),
-    "replay_cone": ("mqs_replay_cone_blocks_per_sm",
-                    {"replay_cone_kernel<false>": 0,
-                     "replay_cone_kernel<true>": 1}),
-    "match_lattice": ("mqs_match_lattice_blocks_per_sm",
-                      {"match_lattice_kernel": {"pass1": 7, "loop": 5}})}
+    "replay_exact": {
+        "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
+        "replay_exact_kernel<true>": ("mqs_replay_exact_blocks_per_sm", 1),
+        "map_step_kernel": ("mqs_replay_exact_blocks_per_sm", 2),
+        "carry_kernel": ("mqs_carry_blocks_per_sm", None)},
+    "replay_cone": {
+        "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
+        "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
+        "carry_kernel": ("mqs_carry_blocks_per_sm", None)},
+    "match_lattice": {
+        "match_lattice_kernel": ("mqs_match_lattice_blocks_per_sm",
+                                 {"pass1": 7, "loop": 5})}}
 # the SLAM path's two lattices: stage -> (n_yaw, T), slab shape
 LATTICES = {"pass1": (7, 7), "loop": (5, 5)}
 SLAB_SHAPES = {"pass1": (104, 256), "loop": (96, 128)}
@@ -423,22 +459,22 @@ def phase_build() -> None:
     for name, info in built.items():
         res = _ptxas_resources(info["log"])
         check(res, f"no ptxas resources in {name}'s build log")
-        if name in OCCUPANCY:
-            entry, arg = OCCUPANCY[name]
+        for r in res:
+            entry, a = OCCUPANCY[name][r["function"]]
             fn = getattr(_build.load_library(name), entry)
-            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-            fn.restype = ctypes.c_int
 
-            def blocks(a, fname):
+            def blocks(v, fname):
                 n = ctypes.c_int(0)
-                check(fn(a, ctypes.byref(n)) == 0,
-                      f"occupancy query of {fname}")
+                args = (ctypes.byref(n),) if v is None else (v,
+                                                            ctypes.byref(n))
+                fn.argtypes = ([ctypes.c_int] * (len(args) - 1)
+                               + [ctypes.POINTER(ctypes.c_int)])
+                fn.restype = ctypes.c_int
+                check(fn(*args) == 0, f"occupancy query of {fname}")
                 return n.value
-            for r in res:
-                a = arg[r["function"]]
-                r["blocks_per_sm"] = (
-                    {k: blocks(v, r["function"]) for k, v in a.items()}
-                    if isinstance(a, dict) else blocks(a, r["function"]))
+            r["blocks_per_sm"] = (
+                {k: blocks(v, r["function"]) for k, v in a.items()}
+                if isinstance(a, dict) else blocks(a, r["function"]))
         sass = _sass_counts(info["path"])
         BUILD_FACTS[name] = {r["function"]: {
             **r, "sass": (sass or {}).get(r["function"])} for r in res}
@@ -499,6 +535,94 @@ def phase_kernel_vs_plain(device) -> None:
     check(launches >= len(cases), f"kernel launched {launches} times")
     say("kernel_vs_plain", kernel="replay_exact", cases=list(cases),
         bit_equal=True, launches=launches, tile_loads=tile_loads)
+
+
+def _carry_operands(frames) -> tuple:
+    """The carry's operands at frame 0: (minima, seq, c0)."""
+    return rx.carry_operands(frames, UL_PROFILE)[1:]
+
+
+def phase_carry_vs_plain(device) -> None:
+    """The carry kernel of both replay libraries == carry_plain on the
+    card, bit for bit, on the replay cases; and resumed at frame 30 ==
+    the whole run."""
+    before = launch_counts()["carry"]
+    cases = _cases()
+    recenters = {}
+    for name, f in cases.items():
+        minima, seq, c0 = _carry_operands(port.frames_to_torch(f, device))
+        want = rx.carry_plain(minima, seq, c0, UL_PROFILE)
+        recenters[name] = int(want[0]["do"].sum())
+        for lib in ("replay_exact", "replay_cone"):
+            got = rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
+            assert_same(got, want, f"carry {lib} {name}")
+    minima, seq, c0 = _carry_operands(port.frames_to_torch(
+        random_flights(), device))
+    cut = lambda a, s: a[:, s].contiguous()                          # noqa: E731
+    head = rx.carry_kernel("replay_exact", cut(minima, slice(0, 30)),
+                           {k: cut(v, slice(0, 30)) for k, v in seq.items()},
+                           c0, UL_PROFILE)
+    tail = rx.carry_kernel("replay_exact", cut(minima, slice(30, None)),
+                           {k: cut(v, slice(30, None))
+                            for k, v in seq.items()}, head[1], UL_PROFILE)
+    joined = {k: torch.cat([head[0][k], tail[0][k]], dim=1) for k in head[0]}
+    assert_same((joined, tail[1]),
+                      rx.carry_plain(minima, seq, c0, UL_PROFILE),
+                      "carry resumed at frame 30")
+    torch.cuda.synchronize()
+    launches = launch_counts()["carry"] - before
+    check(launches == 2 * len(cases) + 2,
+          f"carry kernel launched {launches} times")
+    check(recenters["random_recenter"] >= 1, "no recenter")
+    say("carry_vs_plain", kernel="carry", libraries=["replay_exact",
+                                                     "replay_cone"],
+        cases=list(cases), resumed_at=30, bit_equal=True,
+        launches=launches, recenters=recenters)
+
+
+def phase_carry_bench(device, smi: str, bench_launches: int,
+                      B: int = 1024, T: int = 256, reps: int = 20) -> dict:
+    """The carry kernel alone on bench.py's replay frames: its ms a launch
+    by CUDA events and its device time in one profiled launch, against
+    carry_plain on the card (bit-equal, both libraries) and the bytes
+    bound.  Returns the kernel's entry of the kernels line, with the
+    launches of the bench runs (`bench_launches`, from phase_bench)."""
+    frames = port.frames_to_torch(testdata.bench_frames(B, T), device)
+    minima, seq, c0 = _carry_operands(frames)
+    plain = lambda: rx.carry_plain(minima, seq, c0, UL_PROFILE)     # noqa: E731
+    want = plain()
+    for lib in ("replay_exact", "replay_cone"):
+        assert_same(rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE), want,
+                    f"carry {lib} on the bench frames")
+    fn = lambda: rx.carry_kernel("replay_exact", minima, seq, c0,  # noqa: E731
+                                 UL_PROFILE)
+    before = launch_counts()["carry"]
+    ms = _time_call(fn, reps)
+    launches = launch_counts()["carry"] - before
+    check(launches == reps, f"carry kernel launched {launches} of {reps}")
+    plain_ms = _time_call(plain, 1)
+    # device time a launch over a few profiled launches; None where the
+    # profiler saw none of them
+    busy = _profiled_busy(lambda: [fn() for _ in range(5)],
+                          ("carry_kernel",))
+    n_prof = sum(busy["kernel_launches"].values())
+    device_ms = (sum(busy["kernel_device_ms"].values()) / n_prof
+                 if n_prof else None)
+    # bytes: every input read once, every output written once
+    per_frame = (minima[0, 0].numel() * 4 + 4 * 4 + 2 * 4
+                 + seq["sys_health"].element_size()) + (4 * 4 + 4 * 4 + 3)
+    per_flight = 2 * (4 + 4 + 1 + 16)
+    nbytes = B * T * per_frame + B * per_flight
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say("kernel_alone", kernel="carry", B=B, T=T, ms=ms,
+        device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", bytes=nbytes, profiled_launches=n_prof,
+        ratio_to_bound=None if device_ms is None else device_ms / bound_ms,
+        launches=launches, card=smi)
+    return {"name": "carry", "route": "cuda", **KERNELS["carry"],
+            "launches": bench_launches, "max_abs_err": 0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def phase_cone_kernel_vs_plain(device) -> None:
@@ -947,7 +1071,8 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     card, timed end to end by the port's bench entry (bench.bench_replay:
     a warm-up, then the best of the reps), then its CUDA kernel alone
     against its plain version.  Returns the kernel's entry of the kernels
-    line."""
+    line and the carry kernel's launches in the bench run (one a
+    replay)."""
     name = "replay_exact" if kernel == "residentx" else "replay_cone"
     frames = port.frames_to_torch(testdata.bench_frames(B, T), device)
     check(frames["x_m"].shape == (B, T), "bench frames")
@@ -974,6 +1099,9 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     assert_same((st_k, outs_k), (st_p, outs_p), f"{kernel} bench")
     check(used == total == B * T, f"frames_used {used}/{total}")
     check(n_launch[name] >= 1, f"the {kernel} path never launched {name}")
+    check(n_launch["carry"] == reps + 1,
+          f"the {kernel} path launched carry {n_launch['carry']} times in "
+          f"{reps + 1} replays")
     extra = {}
     if kernel == "hybridx":
         grids = st_k.grid.cpu().numpy()
@@ -1025,7 +1153,8 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
     return {"name": name, "route": "cuda", **KERNELS[name],
             "launches": n_launch[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
-            "bound_by": bound["bound_by"], "library_ms": None}
+            "bound_by": bound["bound_by"], "library_ms": None}, \
+        n_launch["carry"]
 
 
 def _cone_mode_alone(frames, like, smi: str) -> None:
@@ -1207,7 +1336,7 @@ def phase_slam_kernels_vs_plain(device) -> None:
           "the jumping slots do not reload the tile at every slot")
     # a whole flight's re-raster with the exact path's own recenters
     f = port.frames_to_torch(random_flights(), device)
-    beams, so, _, _ = rx.carry(f, UL_PROFILE)
+    beams, so, _, _ = rx.carry(f, UL_PROFILE, library="replay_exact")
     check(int(so["do"].sum()) >= 2, "the random flights do not recenter")
     x = [beams, f["x_m"].nan_to_num(0.0), f["y_m"].nan_to_num(0.0),
          f["yaw_deg"].nan_to_num(0.0), so["ox"].nan_to_num(0.0),
@@ -1776,8 +1905,8 @@ def _path_launches(expect: dict, what: str) -> dict:
 
 def _wire_replays(device, cap, log) -> dict:
     """replay_wirecap of the capture through both whole-replay kernels,
-    each launching its kernel once and no other (counted around that call
-    alone), each grid against the card's scanlog replay of the log as the
+    each launching its kernel and the carry kernel once and no other
+    (counted around that call alone), each grid against the card's scanlog replay of the log as the
     wire carries it, and against the JAX package's CPU grid (wire_ref)."""
     import dataclasses
 
@@ -1797,7 +1926,8 @@ def _wire_replays(device, cap, log) -> dict:
                                         device=device)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = _path_launches({name: 1}, f"replay_wirecap({kernel})")
+        counts = _path_launches({name: 1, "carry": 1},
+                                f"replay_wirecap({kernel})")
         grid = port.logical_grid(st.grid).cpu().numpy()
         scan = {}
         for name, f in (("wire", wire_log), ("plain", plain_log)):
@@ -2299,6 +2429,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_card()
     phase_build()
+    phase_carry_vs_plain(device)
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
     phase_slam_kernels_vs_plain(device)
@@ -2315,8 +2446,10 @@ def main() -> int:
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     phase_native_io(build)
-    kernels = [phase_bench(device, smi, "residentx"),
-               phase_bench(device, smi, "hybridx", plain_reps=1)]
+    exact, n_exact = phase_bench(device, smi, "residentx")
+    hybrid, n_hybrid = phase_bench(device, smi, "hybridx", plain_reps=1)
+    kernels = [exact, hybrid, phase_carry_bench(device, smi,
+                                                n_exact + n_hybrid)]
     slam = phase_slam_bench(device, smi, "ul", 128)
     phase_slam_bench(device, smi, "rt", 256)
     phase_ekf_bench(device, smi)

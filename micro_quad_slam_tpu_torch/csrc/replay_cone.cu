@@ -76,11 +76,16 @@
 // float constants come from the wrapper, derived as the plain version
 // derives them.  tests/test_torch_cone_factored.py holds the factored
 // classification equal to conemode.cone_cell_delta on the CPU.
+//
+// The library also exports mqs_carry (carry.cuh, shared with
+// replay_exact.cu): the replay's sequential carry that makes this
+// kernel's schedule.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "carry.cuh"
 #include "recenter.cuh"
 
 namespace {

@@ -78,13 +78,18 @@
 // Gating makes an out-of-grid walk impossible: a ray is valid only when
 // its pose cell and its endpoint cell lie in the logical grid, and a walk
 // stays in their bounding box.  The kernel does integer work only; the
-// float math (ray trig, origins, the EMA) stays in torch, so no compiler
+// float math of the rays (their trig) stays in torch, so no compiler
 // contraction can touch it.
+//
+// The library also exports mqs_carry (carry.cuh, shared with
+// replay_cone.cu): the replay's sequential carry (the EMA, origins,
+// recenter schedule and gates) that makes this kernel's schedule.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "carry.cuh"
 #include "recenter.cuh"
 
 namespace {

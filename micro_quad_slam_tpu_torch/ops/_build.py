@@ -27,7 +27,9 @@ BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 # float products and sums that must round on their own, as the plain
 # torch version's do (a 1-ulp difference flips cells on a fan boundary,
 # ops/conemode.py); it also spells each rounding out with __fmul_rn /
-# __fadd_rn.  replay_exact.cu does integer work only.
+# __fadd_rn.  The carry kernel (carry.cuh, in both replay libraries) does
+# the same for the ToF filter and the origins.  replay_exact.cu's own
+# kernels do integer work only.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")

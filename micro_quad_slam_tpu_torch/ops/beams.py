@@ -56,6 +56,12 @@ def extract_beams(grid_mm: torch.Tensor, tof: TofConfig = TofConfig()):
     return beams, minima
 
 
+def tof_filter_weights(alpha: float) -> tuple:
+    """The EMA's float32 weights (1 - a, a) as Python floats."""
+    a = _F32(alpha)
+    return _f(_F32(1.0) - a), _f(a)
+
+
 def tof_filter_update(filt: torch.Tensor, minima: torch.Tensor,
                       alpha: float = 0.20) -> torch.Tensor:
     """NaN-aware EMA on per-direction minima (uav_local_nav.c:1430-1438):
@@ -66,9 +72,9 @@ def tof_filter_update(filt: torch.Tensor, minima: torch.Tensor,
     overridden below) but pin the arithmetic to mul-then-add: a fusing
     compiler would otherwise be free to contract it into an fma, and the
     1-ulp skew breaks bit-equality of filt with the reference."""
-    a = _F32(alpha)
-    p1 = torch.where(filt == filt, (_f(_F32(1.0) - a)) * filt, minima)
-    p2 = torch.where(minima == minima, _f(a) * minima, filt)
+    keep, a = tof_filter_weights(alpha)
+    p1 = torch.where(filt == filt, keep * filt, minima)
+    p2 = torch.where(minima == minima, a * minima, filt)
     blended = p1 + p2
     upd = torch.where(torch.isnan(filt), minima, blended)
     return torch.where(torch.isnan(minima), filt, upd)

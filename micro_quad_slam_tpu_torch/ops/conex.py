@@ -5,7 +5,8 @@ pallas_replay_conex and of the "cone2"/"hybrid2" modes of
 pallas_resident.py::_schedule).
 
 `schedule` runs the sequential [B]-wide carry over T that the exact path
-runs (ops/residentx.py::carry), then makes what every (quad, frame)
+runs (ops/residentx.py::carry; on a CUDA tensor its kernel from this
+path's own library, replay_cone), then makes what every (quad, frame)
 contributes at once (ops/conemode.py::scan_inputs) and packs it into one
 int32 tensor [B, T, words]; float words hold their float32 bits:
 
@@ -75,7 +76,8 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
     Returns (sched int32 [B, T, words_of(hybrid)], outs {used, kf_flags,
     filt} [B, T, ...], final (origin_x, origin_y, inited, filt))."""
     with obs.span("replay.carry"):
-        beams, so, outs, final = carry(frames, cfg, state0)
+        beams, so, outs, final = carry(frames, cfg, state0,
+                                       library="replay_cone")
     B, T = frames["x_m"].shape
     flat = lambda a: a.reshape((B * T,) + a.shape[2:])               # noqa: E731
     with obs.span("replay.rays"):

@@ -318,20 +318,25 @@ def apply_scan_to_grid(
     return apply_rays_(padded_grid.clone(), rays, cfg, geom)
 
 
+def recenter_constants(cfg: MapConfig) -> tuple:
+    """recenter_decide's constants: the float32 threshold (m) and cell
+    size (m) as Python floats, and the shift clamp (cells)."""
+    half = _F32(cfg.size_m) * _F32(0.5)
+    return (_f(half * _F32(cfg.recenter_frac)), _f(cfg.res_m),
+            cfg.recenter_max_shift_cells)
+
+
 def recenter_decide(
     origin_x, origin_y, x_m, y_m, pose_ok, cfg: MapConfig = MapConfig(),
 ):
     """Cheap scalar part of map recentering (uav_local_nav.c:324-343):
     shift cells (sx, sy) clamped to +/-recenter_max_shift_cells, and the
     `do` flag.  Zero shift when not recentering."""
-    half = _F32(cfg.size_m) * _F32(0.5)
-    thresh = _f(half * _F32(cfg.recenter_frac))
+    thresh, res, mx = recenter_constants(cfg)
     dx = x_m - origin_x
     dy = y_m - origin_y
     need = pose_ok & ((dx.abs() >= thresh) | (dy.abs() >= thresh))
 
-    res = _f(cfg.res_m)
-    mx = cfg.recenter_max_shift_cells
     sx = _round_to_i32(div_f32(dx, res)).clamp(-mx, mx)
     sy = _round_to_i32(div_f32(dy, res)).clamp(-mx, mx)
     do = need & ((sx != 0) | (sy != 0))

@@ -7,8 +7,11 @@ Everything except the grid depends only on the logged frames: origins,
 the recenter schedule, the ray endpoints and the enable gates.  So
 `schedule` runs the sequential [B]-wide carry over T (`carry`: ToF
 filter, map init, recenter decision, origin shift; ops/conex.py shares
-it) and then makes every ray of every (quad, frame) at once.  It packs
-them into one int32 tensor [B, T, WORDS]:
+it) and then makes every ray of every (quad, frame) at once.  On a CUDA
+tensor the carry is one launch of csrc/carry.cuh's kernel, which both
+replay libraries export (`carry_kernel`); on a CPU tensor it is the
+plain torch loop over T (`carry_plain`).  The schedule packs the rays
+into one int32 tensor [B, T, WORDS]:
 
     word  0..7    header: pose row, pose col (padded-grid cells), do,
                   recenter rows sy, recenter cols sx, any-valid-ray, and
@@ -49,7 +52,11 @@ import torch
 from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 from micro_quad_slam_tpu_torch.ops import _build
-from micro_quad_slam_tpu_torch.ops.beams import extract_beams, tof_filter_update
+from micro_quad_slam_tpu_torch.ops.beams import (
+    extract_beams,
+    tof_filter_update,
+    tof_filter_weights,
+)
 from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
@@ -57,6 +64,7 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
     cut_windows,
     make_rays,
     recenter_apply,
+    recenter_constants,
 )
 
 HDR = 8
@@ -98,47 +106,177 @@ def check_supported(cfg: PipelineConfig, geom: GridGeom) -> None:
                          + "; ".join(bad))
 
 
-def carry(frames: dict, cfg: PipelineConfig, state0=None):
+def carry(frames: dict, cfg: PipelineConfig, state0=None, *, library: str):
     """The sequential part of a whole replay, shared by every schedule
     (the exact one here, the cone and hybrid one in ops/conex.py): the
     ToF filter, map init, recenter decision and origin shift, carried
-    over T for the whole [B] batch, then the enable gates.
+    over T for the whole [B] batch, then the enable gates.  On a CUDA
+    device it is one launch of the carry kernel (`carry_kernel`) from the
+    calling schedule's `library`; on any other it is the plain torch loop
+    (`carry_plain`).
 
     Returns (beams f32 [B, T, 4, 8], seq {ox, oy, sx, sy, do, enabled}
     of [B, T], outs {used, kf_flags, filt} [B, T, ...], final (origin_x,
     origin_y, inited, filt))."""
+    beams, minima, seq, c0 = carry_operands(frames, cfg, state0)
+    if seq["x_m"].device.type == "cuda":
+        so, final = carry_kernel(library, minima, seq, c0, cfg)
+    else:
+        so, final = carry_plain(minima, seq, c0, cfg)
+    outs = {"used": so["enabled"], "kf_flags": so.pop("kf_flags"),
+            "filt": so.pop("filt")}
+    return beams, so, outs, final
+
+
+# the per-frame inputs of the carry besides the ToF minima
+CARRY_KEYS = ("x_m", "y_m", "yaw_deg", "of_rate_x", "state", "of_q",
+              "sys_health")
+
+
+def carry_operands(frames: dict, cfg: PipelineConfig, state0=None) -> tuple:
+    """What the carry takes from frames [B, T, ...] and a resume state:
+    (beams f32 [B, T, 4, 8], minima f32 [B, T, 4], seq the CARRY_KEYS
+    tensors [B, T] (contiguous; state and of_q int32), c0 the carry at
+    the first frame: state0's (origin_x, origin_y, inited, filt), or a
+    fresh mapper's (NaN origins and filter, not inited))."""
+    x = frames["x_m"]
+    B, dev = x.shape[0], x.device
+    beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
+    seq = {k: frames[k].contiguous() for k in CARRY_KEYS}
+    seq["state"] = seq["state"].to(torch.int32)
+    seq["of_q"] = seq["of_q"].to(torch.int32)
+    if state0 is not None:
+        c0 = tuple(v.to(dev).contiguous() for v in (
+            state0.origin_x, state0.origin_y, state0.inited, state0.filt))
+    else:
+        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
+        c0 = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
+              torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
+    return beams, minima, seq, c0
+
+
+def carry_plain(minima: torch.Tensor, seq: dict, c0: tuple,
+                cfg: PipelineConfig):
+    """Plain torch version of the carry kernel, on any device: a Python
+    loop over T of [B]-wide ops (tof_filter_update, init_and_recenter),
+    then the enable gates.  minima, seq and c0 as carry_operands gives
+    them.
+
+    Returns ({ox, oy, sx, sy, do, enabled, kf_flags} [B, T] and filt
+    [B, T, 4], final (origin_x, origin_y, inited, filt))."""
     from micro_quad_slam_tpu_torch.replay.mapping import (
         init_and_recenter, kf_flags_of, pose_good_for_mapping)
 
-    x, y = frames["x_m"], frames["y_m"]
-    B, T = x.shape
-    dev = x.device
-    beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
-    if state0 is not None:
-        c = (state0.origin_x, state0.origin_y, state0.inited, state0.filt)
-        c = tuple(v.to(dev) for v in c)
-    else:
-        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-        c = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
-             torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
-
-    # the sequential carry: [B]-wide, T steps
-    ox, oy, inited, filt = c
-    seq = {k: [] for k in ("ox", "oy", "inited", "sx", "sy", "do", "filt")}
-    for t in range(T):
+    x, y, state = seq["x_m"], seq["y_m"], seq["state"]
+    ox, oy, inited, filt = c0
+    steps = {k: [] for k in ("ox", "oy", "inited", "sx", "sy", "do", "filt")}
+    for t in range(x.shape[1]):
         filt = tof_filter_update(filt, minima[:, t], cfg.tof.filt_alpha)
         ox, oy, inited, sx, sy, do = init_and_recenter(
-            ox, oy, inited, x[:, t], y[:, t], frames["state"][:, t], cfg)
-        for k, v in zip(seq, (ox, oy, inited, sx, sy, do, filt)):
-            seq[k].append(v)
-    final = (ox, oy, inited, filt)
-    so = {k: torch.stack(v, dim=1) for k, v in seq.items()}
+            ox, oy, inited, x[:, t], y[:, t], state[:, t], cfg)
+        for k, v in zip(steps, (ox, oy, inited, sx, sy, do, filt)):
+            steps[k].append(v)
+    so = {k: torch.stack(v, dim=1) for k, v in steps.items()}
     so["enabled"] = so.pop("inited") & pose_good_for_mapping(
-        x, frames["yaw_deg"], frames["of_q"].to(torch.int32),
-        frames["of_rate_x"], frames["sys_health"], cfg.gates.of_min_quality)
-    outs = {"used": so["enabled"], "kf_flags": kf_flags_of(so["do"]),
-            "filt": so.pop("filt")}
-    return beams, so, outs, final
+        x, seq["yaw_deg"], seq["of_q"], seq["of_rate_x"], seq["sys_health"],
+        cfg.gates.of_min_quality)
+    so["kf_flags"] = kf_flags_of(so["do"])
+    return so, (ox, oy, inited, filt)
+
+
+def check_carry_operands(minima: torch.Tensor, seq: dict, c0: tuple) -> None:
+    """Raise on operands the carry kernel does not take: every tensor
+    contiguous on x_m's device, with carry_plain's shapes and minima,
+    poses, yaw and flow rate float32, state and flow quality int32, the
+    health word int32 or int64, and c0 (origin_x, origin_y float32 [B],
+    inited bool [B], filt float32 [B, 4])."""
+    x = seq["x_m"]
+    if x.dim() != 2:
+        raise ValueError(f"x_m must be [B, T], got {tuple(x.shape)}")
+    B, T = x.shape
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    ops = [("minima", minima, (B, T, 4), (f32,))]
+    ops += [(k, seq[k], (B, T), (f32,))
+            for k in ("x_m", "y_m", "yaw_deg", "of_rate_x")]
+    ops += [("state", seq["state"], (B, T), (i32,)),
+            ("of_q", seq["of_q"], (B, T), (i32,)),
+            ("sys_health", seq["sys_health"], (B, T), (i32, i64))]
+    ops += [(k, v, shape, (dt,)) for k, v, shape, dt in zip(
+        ("origin_x", "origin_y", "inited", "filt"), c0,
+        ((B,), (B,), (B,), (B, 4)), (f32, f32, torch.bool, f32))]
+    for name, v, shape, dtypes in ops:
+        if v.dtype not in dtypes:
+            raise TypeError(f"carry kernel: {name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {v.dtype}")
+        if tuple(v.shape) != shape:
+            raise ValueError(f"carry kernel: {name} must be of shape "
+                             f"{shape}, got {tuple(v.shape)}")
+        if v.device != x.device:
+            raise ValueError(f"carry kernel: {name} on {v.device}, x_m on "
+                             f"{x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"carry kernel: {name} must be contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"no carry kernel for device {x.device} "
+                         f"(carry_plain runs anywhere)")
+
+
+def carry_kernel(library: str, minima: torch.Tensor, seq: dict, c0: tuple,
+                 cfg: PipelineConfig):
+    """carry_plain's outputs from one launch of the carry kernel
+    (csrc/carry.cuh) in the replay library `library` ("replay_exact" or
+    "replay_cone", which both export it), on CUDA tensors; bit-equal to
+    carry_plain on the card.  Raises on operands it does not take
+    (check_carry_operands) and on a failed launch.  Each launch counts in
+    launches.carry (utils/obs.py)."""
+    from micro_quad_slam_tpu_torch.replay.mapping import (
+        KF_MAP_RECENTER, SENSOR_XY_POSITION_CONTROL,
+        SENSOR_Z_ALTITUDE_CONTROL, airborne_bounds)
+
+    check_carry_operands(minima, seq, c0)
+    x = seq["x_m"]
+    B, T = x.shape
+    dev = x.device
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    so = {"ox": empty((B, T), torch.float32),
+          "oy": empty((B, T), torch.float32),
+          "sx": empty((B, T), torch.int32), "sy": empty((B, T), torch.int32),
+          "do": empty((B, T), torch.bool),
+          "enabled": empty((B, T), torch.bool),
+          "kf_flags": empty((B, T), torch.uint8),
+          "filt": empty((B, T, 4), torch.float32)}
+    final = (empty((B,), torch.float32), empty((B,), torch.float32),
+             empty((B,), torch.bool), empty((B, 4), torch.float32))
+    if B == 0:
+        return so, final
+    fn = _build.load_library(library).mqs_carry
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 4 + [ctypes.c_double]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    keep, a = tof_filter_weights(cfg.tof.filt_alpha)
+    thresh, res, max_shift = recenter_constants(cfg.map)
+    st_lo, st_hi = airborne_bounds(cfg)
+    health = seq["sys_health"]
+    ins = [minima] + [seq[k] for k in ("x_m", "y_m", "yaw_deg", "of_rate_x",
+                                       "state", "of_q")]
+    outs = [so[k] for k in ("ox", "oy", "sx", "sy", "do", "enabled",
+                            "kf_flags", "filt")]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*[v.data_ptr() for v in ins], health.data_ptr(),
+                 int(health.dtype == torch.int64),
+                 *[v.data_ptr() for v in c0],
+                 *[v.data_ptr() for v in outs + list(final)],
+                 B, T, keep, a, thresh, res, 1.0 / res, max_shift,
+                 st_lo, st_hi,
+                 SENSOR_XY_POSITION_CONTROL | SENSOR_Z_ALTITUDE_CONTROL,
+                 cfg.gates.of_min_quality, KF_MAP_RECENTER, stream)
+    if err != 0:
+        raise RuntimeError(f"carry kernel launch failed: CUDA error {err}")
+    obs.count("launches.carry")
+    return so, final
 
 
 def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
@@ -150,7 +288,8 @@ def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
     Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
     [B, T, ...], final (origin_x, origin_y, inited, filt))."""
     with obs.span("replay.carry"):
-        beams, so, outs, final = carry(frames, cfg, state0)
+        beams, so, outs, final = carry(frames, cfg, state0,
+                                       library="replay_exact")
     # everything below is carry-free: vectorized over [B, T]
     with obs.span("replay.rays"):
         rays = make_rays(beams, frames["x_m"], frames["y_m"],

@@ -154,8 +154,13 @@ def airborne_state(state, cfg: PipelineConfig):
     = 5..8 (uav_local_nav.c:484-496); CL (no EXPLORE/TURNING) has HOVER,
     LANDING = 5, 6 (clean:325-335)."""
     st = state.to(torch.int32)
-    st_hi = ST_LANDING if cfg.behavior.explore_enabled else 6
-    return (st >= ST_HOVER) & (st <= st_hi)
+    st_lo, st_hi = airborne_bounds(cfg)
+    return (st >= st_lo) & (st <= st_hi)
+
+
+def airborne_bounds(cfg: PipelineConfig) -> tuple:
+    """The first and last state byte with the map active (airborne_state)."""
+    return ST_HOVER, ST_LANDING if cfg.behavior.explore_enabled else 6
 
 
 def init_and_recenter(origin_x, origin_y, inited, x, y, state,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
-map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu) against
+map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu, the carry
+kernel of csrc/carry.cuh in both replay libraries) against
 their plain torch versions, on the card, the simulator's card run
 against the committed JAX small swarm, and the SLAM's card run against
 its CPU run.  Every test here needs a
@@ -13,6 +14,7 @@ CUDA machine:
 (--noconftest: tests/conftest.py imports jax for the JAX package's tests).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,6 +105,115 @@ def test_replay_through_kernel_equals_per_frame_path(cuda, kernel, plain):
     frames = _flights(cuda)
     _assert_same(port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel),
                  port.replay_mapping_batched(frames, UL_PROFILE, kernel=plain))
+
+
+def _carry_frames(case, device):
+    """The carry kernel's card cases, from the 4 random flights of
+    _flights: as they are (flight 1 recenters at frames 28 and 51); 37
+    flights, the 4 repeated under rigid offsets (a block and 5 flights);
+    61 frames (a chunk and 29 frames) and 1; NaN poses, yaws and flow
+    rates, dropped ToF sensors (NaN minima), a late take-off, ground
+    states and health words with one bit, both or none."""
+    f = {k: v[:4].copy() for k, v in testdata.load("random_flights")[0]
+         .items()}
+    if case == "batch_37":
+        idx = np.arange(37) % 4
+        f = {k: v[idx] for k, v in f.items()}
+        k = np.arange(37, dtype=np.float32)[:, None]
+        f["x_m"] = f["x_m"] + np.float32(0.37) * k
+        f["y_m"] = f["y_m"] - np.float32(1.13) * k
+        f["yaw_deg"] = f["yaw_deg"] + np.float32(9.5) * k
+    elif case in ("T_61", "T_1"):
+        T = int(case[2:])
+        f = {k: v[:, :T] for k, v in f.items()}
+    elif case == "nan_and_dropouts":
+        nan = np.float32("nan")
+        f["x_m"][0, 5:9] = nan
+        f["y_m"][1, 10] = nan
+        f["yaw_deg"][2, 3:6] = nan
+        f["of_rate_x"][3, ::3] = nan
+        f["of_q"][3, 1::3] = 10
+        f["grid_mm"][0, 12:20, 1] = 0
+        f["grid_mm"][2, :, 0] = 0xFFFF
+        f["grid_mm"][1, 30:40] = 0
+        f["state"][3, :7] = 2
+        f["state"][2, 40:44] = 9
+        f["sys_health"][0, ::2] = 0x4000
+        f["sys_health"][1, ::5] = 0x6000
+        f["sys_health"][2, 1::4] = 0x01
+    return port.frames_to_torch(f, device)
+
+
+def _bits(v):
+    """A tensor's values as integers, float32 by its bits, every NaN as
+    one value."""
+    if not v.is_floating_point():
+        return v.to(torch.int64)
+    return torch.where(torch.isnan(v), -1, v.view(torch.int32).to(
+        torch.int64))
+
+
+def _assert_carry_same(a, b):
+    (so_a, fin_a), (so_b, fin_b) = a, b
+    assert sorted(so_a) == sorted(so_b)
+    pairs = [(k, so_a[k], so_b[k]) for k in so_a]
+    pairs += [(k, x, y) for k, x, y in zip(
+        ("origin_x", "origin_y", "inited", "filt"), fin_a, fin_b)]
+    for name, x, y in pairs:
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(_bits(x), _bits(y)), name
+
+
+def _carry_operands(frames):
+    return rx.carry_operands(frames, UL_PROFILE)[1:]
+
+
+@pytest.mark.parametrize("library", ["replay_exact", "replay_cone"])
+@pytest.mark.parametrize("case", ["random_flights", "batch_37", "T_61",
+                                  "T_1", "nan_and_dropouts"])
+def test_carry_kernel_bit_equals_plain_on_the_card(cuda, case, library):
+    frames = _carry_frames(case, cuda)
+    minima, seq, c0 = _carry_operands(frames)
+    before = _launches("carry")
+    got = rx.carry_kernel(library, minima, seq, c0, UL_PROFILE)
+    torch.cuda.synchronize()
+    assert _launches("carry") == before + 1
+    want = rx.carry_plain(minima, seq, c0, UL_PROFILE)
+    _assert_carry_same(got, want)
+    so = want[0]
+    if case == "random_flights":
+        assert so["kf_flags"][1].nonzero().flatten().tolist() == [28, 51]
+    if case == "nan_and_dropouts":
+        assert torch.isnan(minima[0, 12:20, 1]).all()
+        assert not so["enabled"][0, 5:9].any()
+        assert so["enabled"].any() and not so["enabled"].all()
+
+
+def test_carry_kernel_resumed_at_frame_30_equals_the_whole_run(cuda):
+    frames = _carry_frames("random_flights", cuda)
+    minima, seq, c0 = _carry_operands(frames)
+    lib = "replay_exact"
+    whole = rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
+    cut = lambda a, s: a[:, s].contiguous()                            # noqa: E731
+    head = rx.carry_kernel(lib, cut(minima, slice(0, 30)),
+                           {k: cut(v, slice(0, 30)) for k, v in seq.items()},
+                           c0, UL_PROFILE)
+    tail = rx.carry_kernel(lib, cut(minima, slice(30, None)),
+                           {k: cut(v, slice(30, None)) for k, v in
+                            seq.items()}, head[1], UL_PROFILE)
+    joined = {k: torch.cat([head[0][k], tail[0][k]], dim=1)
+              for k in whole[0]}
+    _assert_carry_same((joined, tail[1]), whole)
+    _assert_carry_same(whole, rx.carry_plain(minima, seq, c0, UL_PROFILE))
+
+
+@pytest.mark.parametrize("kernel", ["residentx", "conex", "hybridx"])
+def test_one_carry_launch_per_mapping_replay_on_the_card(cuda, kernel):
+    frames = _flights(cuda)
+    before = _launches("carry")
+    port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
+    torch.cuda.synchronize()
+    assert _launches("carry") == before + 1
 
 
 @pytest.mark.parametrize("shape, n_yaw, T", [((104, 256), 7, 7),

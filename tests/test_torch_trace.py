@@ -264,7 +264,7 @@ def test_trace_json_holds_the_spans_around_their_stages_ops(map_runs,
     for k in MAP_SPANS[1:]:
         assert iv["replay"][0] <= iv[k][0] <= iv[k][1] <= iv["replay"][1]
     frames = _map_frames()
-    beams, so, _, _ = rx.carry(frames, UL_PROFILE)
+    beams, so, _, _ = rx.carry(frames, UL_PROFILE, library="replay_exact")
     sched = rx.schedule(frames, UL_PROFILE)[0]
 
     def rays():
@@ -274,7 +274,8 @@ def test_trace_json_holds_the_spans_around_their_stages_ops(map_runs,
         rx._pack(r, so["do"], so["sy"], so["sx"], DEFAULT_GEOM)
 
     grids = rx._fresh_grids(frames["x_m"], DEFAULT_GEOM)
-    alone = {"replay.carry": lambda: rx.carry(frames, UL_PROFILE),
+    alone = {"replay.carry": lambda: rx.carry(frames, UL_PROFILE,
+                                              library="replay_exact"),
              "replay.rays": rays,
              "replay.kernel": lambda: rx.replay_exact(grids, sched,
                                                       UL_PROFILE)}
