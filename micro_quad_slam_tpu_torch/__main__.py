@@ -15,7 +15,7 @@
   python -m micro_quad_slam_tpu_torch sim [--quads N] [--seconds S]
       [--dt-ms MS] [--seed N] [--profile ul|cl] [--vision-flow]
       [--out-prefix PREFIX] [--emit-mavlink cmds.bin] [--save-state CK]
-      [--resume CK]
+      [--resume CK] [--trace-dir DIR]
   python -m micro_quad_slam_tpu_torch synth --out scanlog.bin [--frames N]
       [--path circle|hover|line|fig8] [--emit-wirecap cap.bin [--mav2]]
   python -m micro_quad_slam_tpu_torch bench [replay|slam|ekf|swarm]
@@ -29,10 +29,11 @@ replay, fusion, slam, sim and bench run on the CUDA device; without one
 they exit with status 2 unless given --device cpu.  replay --sharded
 splits the logs over every visible CUDA device (parallel/mesh.py; with
 --device cpu, over the CPU once).  synth and info need no device.
-replay and slam --trace-dir DIR run the replay under torch.profiler
-(utils/obs.py::profile_trace): DIR/trace.json holds the Chrome trace with
-the replay's stage spans, DIR/spans.json each span's calls, seconds and
-share of its root and the counters, and one summary line goes to stderr.
+replay, slam and sim --trace-dir DIR run the replay (sim: the swarm's
+run) under torch.profiler (utils/obs.py::profile_trace): DIR/trace.json
+holds the Chrome trace with the stage spans, DIR/spans.json each span's
+calls, seconds and share of its root and the counters, and one summary
+line goes to stderr.
 """
 
 from __future__ import annotations
@@ -426,7 +427,8 @@ def cmd_sim(args) -> int:
         make_world, sim_diag_to_mavlink, sim_diag_to_scanlogs, sim_init,
         sim_run, sim_state_from_numpy, sim_state_to_numpy)
     from micro_quad_slam_tpu_torch.ops.raycast import logical_grid
-    from micro_quad_slam_tpu_torch.utils.obs import STATE_NAMES_UL
+    from micro_quad_slam_tpu_torch.utils.obs import (
+        STATE_NAMES_UL, profile_trace, summary_line)
 
     device = _device(args.device, "simulate")
     if device is None:
@@ -442,9 +444,12 @@ def cmd_sim(args) -> int:
         st = sim_init(B, args.seed, spread_m=0.5, device=device)
     steps = int(args.seconds * 1000 / args.dt_ms)
     record = bool(args.out_prefix) or bool(args.emit_mavlink)
-    st, diag = sim_run(st, world, steps, _profile(args.profile),
-                       dt_ms=args.dt_ms, record=record,
-                       vision_flow=args.vision_flow)
+    with profile_trace(args.trace_dir) as trace:
+        st, diag = sim_run(st, world, steps, _profile(args.profile),
+                           dt_ms=args.dt_ms, record=record,
+                           vision_flow=args.vision_flow)
+    if args.trace_dir:
+        print(summary_line(trace), file=sys.stderr)
     if args.save_state:
         from micro_quad_slam_tpu_torch.utils.checkpoint import save_checkpoint
         p = save_checkpoint(args.save_state, {
@@ -541,10 +546,11 @@ def _add_map_images(sub, what: str) -> None:
 
 def _add_trace_dir(sub) -> None:
     sub.add_argument("--trace-dir", metavar="DIR",
-                     help="run the replay under torch.profiler and write "
-                          "DIR/trace.json (Chrome trace with the stage "
-                          "spans) and DIR/spans.json (each span's calls, "
-                          "seconds and share of its root; the counters); "
+                     help="run the replay (sim: the swarm's run) under "
+                          "torch.profiler and write DIR/trace.json (Chrome "
+                          "trace with the stage spans) and DIR/spans.json "
+                          "(each span's calls, seconds and share of its "
+                          "root; the counters); "
                           "the spans synchronise the card at their ends")
 
 
@@ -651,6 +657,7 @@ def main(argv=None) -> int:
                          "rendered downward-camera frames instead of the "
                          "oracle flow sensor")
     pm.add_argument("--device", default="cuda", help=DEVICE_HELP)
+    _add_trace_dir(pm)
     pm.set_defaults(fn=cmd_sim)
 
     py = sub.add_parser("synth", help="generate a synthetic scanlog")

@@ -12,6 +12,15 @@ Each sim step composes the whole framework, for the [B] batch at once:
   behavior       -> commands (models/behavior.py)      [every step]
   dynamics       -> pose/velocity integration          [every step]
 
+Under a torch profiler (utils/obs.py) sim_run is the span `sim` and each
+tick's stages are its spans sim.scan (the scan branch: world raytrace,
+scan synth, beams, map step), sim.frontier (scan ticks), sim.flow,
+sim.ekf, sim.behavior (the machine and the map init it asks for) and
+sim.fc (twice a tick: the telemetry, then the FC applying the outputs
+and the dynamics); the host counters sim.ticks and sim.scan_ticks count
+every tick, and the device counter sim.turning the quad-ticks spent in
+TURNING.  Untraced, the spans are no-ops and sim.turning is not computed.
+
 The time is a host integer, so whether a tick scans is decided on the
 host: the scan branch and the frontier refresh run only on scan ticks, by
 a Python `if`, where the JAX module selects with lax.cond.  A scan tick's
@@ -49,6 +58,7 @@ from micro_quad_slam_tpu_torch.models.behavior import (
     MODE_GUIDED,
     MODE_LAND,
     ST_EXPLORE,
+    ST_TURNING,
     BehaviorState,
     behavior_init,
     behavior_state_from_numpy,
@@ -72,6 +82,7 @@ from micro_quad_slam_tpu_torch.replay.mapping import (
     mapping_state_from_numpy,
     mapping_state_to_numpy,
 )
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
 
 _F32 = np.float32
@@ -111,6 +122,20 @@ def make_world(batch: int, room=(-4.0, -4.0, 4.0, 4.0), obstacles=(),
     return World(room=torch.from_numpy(room.copy()).to(device),
                  obstacles=torch.from_numpy(obs).to(device),
                  obstacle_mask=torch.from_numpy(msk).to(device))
+
+
+def world_from_boxes(room, boxes) -> World:
+    """Per-quad rooms [B, 4] and boxes [B, K, 4] (xmin, ymin, xmax, ymax;
+    tensors) -> a World on the rooms' device.  A box row holding a NaN is
+    absent: zeros under a false mask, as make_world leaves its unused
+    slots, so the world of make_world's rooms and boxes (NaN where its
+    mask is false) is make_world's own."""
+    room = torch.as_tensor(room, dtype=torch.float32)
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=room.device)
+    mask = ~torch.isnan(boxes).any(dim=-1)
+    return World(room=room,
+                 obstacles=torch.where(mask[..., None], boxes, 0.0),
+                 obstacle_mask=mask)
 
 
 def ray_distances(world: World, x, y, ang_rad) -> torch.Tensor:
@@ -261,21 +286,30 @@ def _uniform(gen: torch.Generator, n: int, lo: float, hi: float):
 
 def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
              spread_m: float = 1.0, airborne: bool = False,
-             hover_alt_m: float = 0.5, device=None) -> SimState:
+             hover_alt_m: float = 0.5, device=None, start=None,
+             t0_ms: int = 0) -> SimState:
     """The swarm's start state on `device` (the CUDA device unless told
     otherwise): quads spread uniformly over +/-spread_m with random
     headings, drawn on a CPU generator seeded with `seed`, which the state
-    keeps for its scan ticks.
+    keeps for its scan ticks.  `start` = (x, y, yaw_deg), each [B], gives
+    every quad its own start pose in place of the draws; the draws are
+    made all the same, so the generator's scan draws do not depend on it.
 
     airborne=True starts the fleet mid-mission: armed in GUIDED at hover
     altitude, behaviour in EXPLORE with captured hover targets, and the
     mapper inited at the start pose, so that every scan tick from t=0 runs
-    a real map update."""
+    a real map update.  t0_ms is the mission clock at the start: the XY
+    hold is stamped at 1 ms and the frontier timer at 0, so from a clock
+    past their periods (gates.xy_stable_hold_ms, behavior.frontier_eval_ms)
+    an airborne quad explores from its first tick: it flies forward, or
+    turns from what its first scan and frontier queries show."""
     device = as_device(device)
     gen = torch.Generator().manual_seed(seed)
-    x0 = _uniform(gen, batch, -spread_m, spread_m).to(device)
-    y0 = _uniform(gen, batch, -spread_m, spread_m).to(device)
-    yaw0 = _uniform(gen, batch, -180.0, 180.0).to(device)
+    drawn = (_uniform(gen, batch, -spread_m, spread_m),
+             _uniform(gen, batch, -spread_m, spread_m),
+             _uniform(gen, batch, -180.0, 180.0))
+    x0, y0, yaw0 = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                    for v in (drawn if start is None else start))
     fc = fc_init(batch, device=device)
     beh = behavior_init(batch, device)
     mapper = mapping_init(batch, geom, device)
@@ -304,7 +338,7 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
                        yaw0=yaw0 * _DEG2RAD, device=device)
     nan = lambda *s: torch.full(s, float("nan"), device=device)       # noqa: E731
     return SimState(
-        t_ms=0, gen=gen, x=x0, y=y0, yaw=yaw0,
+        t_ms=t0_ms, gen=gen, x=x0, y=y0, yaw=yaw0,
         vx=torch.zeros((batch,), device=device),
         vy=torch.zeros((batch,), device=device),
         alt=alt, fc=fc, beh=beh, mapper=mapper, ekf=ekf,
@@ -423,211 +457,225 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     scan_due = is_scan_tick(t, scan_period_ms)
     scan_cells = None
     gen = state.gen
+    obs.count("sim.ticks")
+    obs.count("sim.scan_ticks", int(scan_due))
     if scan_due:
-        if draws is None:
-            gen = fork_generator(gen)
-            draws = scan_draws(gen, B)
-        normal, uniform = draws
-        scan_cells = synth_scan_mm(world, state.x, state.y, state.yaw, normal,
-                                   uniform, noise_mm, dropout_p, cfg)
-        beams, tof_min = extract_beams(scan_cells, cfg.tof)
-        grid = mapper.grid.clone()
-        map_step(grid, beams, state.ekf.mean[..., 0], state.ekf.mean[..., 1],
-                 state.yaw, mapper.origin_x, mapper.origin_y, mapper.inited,
-                 cfg, geom)
-        mapper = mapper._replace(grid=grid)
+        with obs.span("sim.scan"):
+            if draws is None:
+                gen = fork_generator(gen)
+                draws = scan_draws(gen, B)
+            normal, uniform = draws
+            scan_cells = synth_scan_mm(world, state.x, state.y, state.yaw,
+                                       normal, uniform, noise_mm, dropout_p,
+                                       cfg)
+            beams, tof_min = extract_beams(scan_cells, cfg.tof)
+            grid = mapper.grid.clone()
+            map_step(grid, beams, state.ekf.mean[..., 0],
+                     state.ekf.mean[..., 1], state.yaw, mapper.origin_x,
+                     mapper.origin_y, mapper.inited, cfg, geom)
+            mapper = mapper._replace(grid=grid)
 
     # ---- flow: oracle sensor model, or pyramidal LK on rendered
     # downward-camera frames ----
-    yaw_rad = state.yaw * _DEG2RAD
-    ground = torch.clamp(state.alt, min=0.0)
-    airborne = state.alt > 0.05
-    cam_prev, cam_valid = state.cam_prev, state.cam_valid
-    vis_rx, vis_ry, vis_q = state.vis_rate_x, state.vis_rate_y, state.vis_q
-    if vision_flow:
-        from micro_quad_slam_tpu_torch.ops.flow import (
-            flow_to_rates, lk_flow_batched, render_camera_frame)
+    with obs.span("sim.flow"):
+        yaw_rad = state.yaw * _DEG2RAD
+        ground = torch.clamp(state.alt, min=0.0)
+        airborne = state.alt > 0.05
+        cam_prev, cam_valid = state.cam_prev, state.cam_valid
+        vis_rx, vis_ry, vis_q = state.vis_rate_x, state.vis_rate_y, state.vis_q
+        if vision_flow:
+            from micro_quad_slam_tpu_torch.ops.flow import (
+                flow_to_rates, lk_flow_batched, render_camera_frame)
 
-        if flow_period_ms % dt_ms:
-            raise ValueError("flow_period_ms must be a multiple of dt_ms (the "
-                             "rate conversion divides by the true "
-                             "inter-frame time)")
-        if t % flow_period_ms == 0:
-            cur = render_camera_frame(state.x, state.y,
-                                      torch.clamp(state.alt, min=0.05),
-                                      yaw_rad, CAM_SIZE, CAM_FOCAL)
-            res = lk_flow_batched(cam_prev, cur)
-            # camera x = body x at yaw 0 by construction of the renderer
-            rx, ry = flow_to_rates(res.dx_px, res.dy_px,
-                                   _F32(flow_period_ms * 1e-3), CAM_FOCAL)
-            q = torch.clamp(res.quality, 0, 255).to(torch.int32)
-            nan = float("nan")
-            vis_rx = rx if cam_valid else torch.full_like(rx, nan)
-            vis_ry = ry if cam_valid else torch.full_like(ry, nan)
-            vis_q = q if cam_valid else torch.zeros_like(q)
-            cam_prev, cam_valid = cur, True
-        of_rate_x = W(airborne, vis_rx, float("nan"))
-        of_rate_y = W(airborne, vis_ry, float("nan"))
-        of_q = W(airborne, vis_q, 0).to(torch.int32)
-    else:
-        c, s = _cos_f32(yaw_rad), _sin_f32(yaw_rad)
-        vbx = c * state.vx + s * state.vy
-        vby = -s * state.vx + c * state.vy
-        gnd = torch.clamp(ground, min=0.05)
-        of_rate_x = W(ground > 0.05, vbx / gnd, float("nan"))
-        of_rate_y = W(ground > 0.05, vby / gnd, float("nan"))
-        of_q = W(airborne, 85, 0).to(torch.int32)
-    ekf, _ = ekf_step(state.ekf, torch.full((B,), fdt, device=dev),
-                      of_rate_x, of_rate_y, of_q, ground, yaw_rad, cfg.ekf)
-    # seed the EKF position while on the ground (perfect initial fix)
-    on_gnd = ~airborne
-    mean = ekf.mean.clone()
-    mean[..., 0] = W(on_gnd, state.x, mean[..., 0])
-    mean[..., 1] = W(on_gnd, state.y, mean[..., 1])
-    ekf = EkfState(mean, ekf.cov)
+            if flow_period_ms % dt_ms:
+                raise ValueError("flow_period_ms must be a multiple of "
+                                 "dt_ms (the rate conversion divides by "
+                                 "the true inter-frame time)")
+            if t % flow_period_ms == 0:
+                cur = render_camera_frame(state.x, state.y,
+                                          torch.clamp(state.alt, min=0.05),
+                                          yaw_rad, CAM_SIZE, CAM_FOCAL)
+                res = lk_flow_batched(cam_prev, cur)
+                # camera x = body x at yaw 0 by construction of the renderer
+                rx, ry = flow_to_rates(res.dx_px, res.dy_px,
+                                       _F32(flow_period_ms * 1e-3), CAM_FOCAL)
+                q = torch.clamp(res.quality, 0, 255).to(torch.int32)
+                nan = float("nan")
+                vis_rx = rx if cam_valid else torch.full_like(rx, nan)
+                vis_ry = ry if cam_valid else torch.full_like(ry, nan)
+                vis_q = q if cam_valid else torch.zeros_like(q)
+                cam_prev, cam_valid = cur, True
+            of_rate_x = W(airborne, vis_rx, float("nan"))
+            of_rate_y = W(airborne, vis_ry, float("nan"))
+            of_q = W(airborne, vis_q, 0).to(torch.int32)
+        else:
+            c, s = _cos_f32(yaw_rad), _sin_f32(yaw_rad)
+            vbx = c * state.vx + s * state.vy
+            vby = -s * state.vx + c * state.vy
+            gnd = torch.clamp(ground, min=0.05)
+            of_rate_x = W(ground > 0.05, vbx / gnd, float("nan"))
+            of_rate_y = W(ground > 0.05, vby / gnd, float("nan"))
+            of_q = W(airborne, 85, 0).to(torch.int32)
+    with obs.span("sim.ekf"):
+        ekf, _ = ekf_step(state.ekf, torch.full((B,), fdt, device=dev),
+                          of_rate_x, of_rate_y, of_q, ground, yaw_rad,
+                          cfg.ekf)
+        # seed the EKF position while on the ground (perfect initial fix)
+        on_gnd = ~airborne
+        mean = ekf.mean.clone()
+        mean[..., 0] = W(on_gnd, state.x, mean[..., 0])
+        mean[..., 1] = W(on_gnd, state.y, mean[..., 1])
+        ekf = EkfState(mean, ekf.cov)
 
     # ---- frontier queries from the mapper grid, refreshed on scan ticks
     # only: the grid only changes then ----
     fr = state.frontier
     if scan_due:
-        fr = frontier_scores(mapper.grid, mean[..., 0], mean[..., 1],
-                             state.yaw, FRONTIER_OFFSETS, mapper.origin_x,
-                             mapper.origin_y, mapper.inited, cfg.map, geom)
+        with obs.span("sim.frontier"):
+            fr = frontier_scores(mapper.grid, mean[..., 0], mean[..., 1],
+                                 state.yaw, FRONTIER_OFFSETS,
+                                 mapper.origin_x, mapper.origin_y,
+                                 mapper.inited, cfg.map, geom)
 
     # ---- telemetry assembly (the FC/L1 interface) ----
-    bt = torch.full((B,), t, dtype=torch.int32, device=dev)
-    yes = torch.ones((B,), dtype=torch.bool, device=dev)
-    half_v = fc.batt_v * 0.5
-    tm = {
-        "t_ms": bt,
-        "have_fc": yes,
-        "fc_armed": fc.armed,
-        "hb_custom_mode": fc.mode,
-        "have_ext": yes,
-        "landed_state": W(airborne, 2, 1).to(torch.int32),
-        "have_sys": yes,
-        "sys_last_ms": bt,
-        "sys_health": torch.full((B,), HEALTH_ALL, dtype=torch.int32,
-                                 device=dev),
-        "have_servo": yes,
-        "servo_last_ms": bt,
-        "motor_avg": fc.motor,
-        "batt_vpc": half_v,
-        "batt_cells": torch.full((B,), 2, dtype=torch.int32, device=dev),
-        "batt_last_ms": bt,
-        # intake latch as handle_battery_status would set it for a 2-cell
-        # reading (clean:1286-1294)
-        "batt_valid": ((fc.batt_v >= 3.0) & (fc.batt_v <= 30.0)
-                       & (half_v >= 2.5) & (half_v <= _f(4.8))),
-        "have_lpos": yes,
-        "lpos_last_ms": bt,
-        "lpos_x": mean[..., 0],
-        "lpos_y": mean[..., 1],
-        "lpos_alt_filt": state.alt,
-        "have_att": yes,
-        "yaw_deg": state.yaw,
-        "have_of": yes,
-        "of_last_ms": bt,
-        "of_q": of_q,
-        "have_rf": airborne,
-        "rf_last_ms": W(airborne, bt, torch.clamp(bt - 1000, min=0)),
-        "rf_m": W(airborne, state.alt, float("nan")),
-        "want_arm": torch.as_tensor(want_arm, device=dev).expand(B),
-        "have_takeoff_ack": fc.have_ack,
-        "takeoff_ack_res": fc.ack_res,
-        "takeoff_ack_ms": fc.ack_ms,
-        "takeoff_accept_ms": fc.accept_ms,
-        "tof_min": tof_min,
-        "map_inited": mapper.inited,
-        "frontier_f": fr[..., 0],
-        "frontier_r": fr[..., 1],
-        "frontier_l": fr[..., 2],
-        "frontier_b": fr[..., 3],
-    }
+    with obs.span("sim.fc"):
+        bt = torch.full((B,), t, dtype=torch.int32, device=dev)
+        yes = torch.ones((B,), dtype=torch.bool, device=dev)
+        half_v = fc.batt_v * 0.5
+        tm = {
+            "t_ms": bt,
+            "have_fc": yes,
+            "fc_armed": fc.armed,
+            "hb_custom_mode": fc.mode,
+            "have_ext": yes,
+            "landed_state": W(airborne, 2, 1).to(torch.int32),
+            "have_sys": yes,
+            "sys_last_ms": bt,
+            "sys_health": torch.full((B,), HEALTH_ALL, dtype=torch.int32,
+                                     device=dev),
+            "have_servo": yes,
+            "servo_last_ms": bt,
+            "motor_avg": fc.motor,
+            "batt_vpc": half_v,
+            "batt_cells": torch.full((B,), 2, dtype=torch.int32, device=dev),
+            "batt_last_ms": bt,
+            # intake latch as handle_battery_status would set it for a 2-cell
+            # reading (clean:1286-1294)
+            "batt_valid": ((fc.batt_v >= 3.0) & (fc.batt_v <= 30.0)
+                           & (half_v >= 2.5) & (half_v <= _f(4.8))),
+            "have_lpos": yes,
+            "lpos_last_ms": bt,
+            "lpos_x": mean[..., 0],
+            "lpos_y": mean[..., 1],
+            "lpos_alt_filt": state.alt,
+            "have_att": yes,
+            "yaw_deg": state.yaw,
+            "have_of": yes,
+            "of_last_ms": bt,
+            "of_q": of_q,
+            "have_rf": airborne,
+            "rf_last_ms": W(airborne, bt, torch.clamp(bt - 1000, min=0)),
+            "rf_m": W(airborne, state.alt, float("nan")),
+            "want_arm": torch.as_tensor(want_arm, device=dev).expand(B),
+            "have_takeoff_ack": fc.have_ack,
+            "takeoff_ack_res": fc.ack_res,
+            "takeoff_ack_ms": fc.ack_ms,
+            "takeoff_accept_ms": fc.accept_ms,
+            "tof_min": tof_min,
+            "map_inited": mapper.inited,
+            "frontier_f": fr[..., 0],
+            "frontier_r": fr[..., 1],
+            "frontier_l": fr[..., 2],
+            "frontier_b": fr[..., 3],
+        }
 
     # ---- behavior tick ----
-    beh, out = behavior_step(state.beh, tm, cfg)
+    with obs.span("sim.behavior"):
+        beh, out = behavior_step(state.beh, tm, cfg)
 
-    # ---- map init on hover lock (uav_local_nav.c:2187-2194) ----
-    minit = out["map_init"] & ~mapper.inited
-    mapper = mapper._replace(
-        origin_x=W(minit, out["map_origin_x"], mapper.origin_x),
-        origin_y=W(minit, out["map_origin_y"], mapper.origin_y),
-        inited=mapper.inited | minit,
-    )
+        # ---- map init on hover lock (uav_local_nav.c:2187-2194) ----
+        minit = out["map_init"] & ~mapper.inited
+        mapper = mapper._replace(
+            origin_x=W(minit, out["map_origin_x"], mapper.origin_x),
+            origin_y=W(minit, out["map_origin_y"], mapper.origin_y),
+            inited=mapper.inited | minit,
+        )
 
-    # ---- FC applies outputs ----
-    fc = fc._replace(mode=W(out["req_mode"] >= 0, out["req_mode"], fc.mode))
-    fc = fc._replace(armed=W(out["req_arm"] == 1, True,
-                             W(out["req_arm"] == 0, False, fc.armed)))
-    to_req = torch.isfinite(out["req_takeoff"])
-    fc = fc._replace(
-        have_ack=fc.have_ack | to_req,
-        ack_res=W(to_req, 0, fc.ack_res),
-        ack_ms=W(to_req, bt, fc.ack_ms),
-        accept_ms=W(to_req, bt, fc.accept_ms),
-        takeoff_active=fc.takeoff_active | to_req,
-        takeoff_target=W(to_req, out["req_takeoff"], fc.takeoff_target),
-    )
-    clear = out["clear_takeoff_ack"]
-    fc = fc._replace(
-        have_ack=W(clear, False, fc.have_ack),
-        ack_ms=W(clear, 0, fc.ack_ms),
-        accept_ms=W(clear, 0, fc.accept_ms),
-    )
-    kind = out["cmd_kind"]
-    cmd = out["cmd"]
-    body = kind == CMD_VEL_BODY
-    pos = kind == CMD_POS_YAW
-    fc = fc._replace(
-        vset_bx=W(body, cmd[..., 0], 0.0),
-        vset_by=W(body, cmd[..., 1], 0.0),
-        yaw_rate_cmd=W(body, cmd[..., 3], 0.0),
-        climb_cmd=W(kind == CMD_VEL_NED, -cmd[..., 2], 0.0),
-        pos_hold=pos,
-        pos_cmd=W(pos[..., None], cmd[..., :3], fc.pos_cmd),
-        pos_cmd_yaw=W(pos, cmd[..., 3], fc.pos_cmd_yaw),
-    )
+    with obs.span("sim.fc"):
+        # ---- FC applies outputs ----
+        fc = fc._replace(mode=W(out["req_mode"] >= 0, out["req_mode"],
+                                fc.mode))
+        fc = fc._replace(armed=W(out["req_arm"] == 1, True,
+                                 W(out["req_arm"] == 0, False, fc.armed)))
+        to_req = torch.isfinite(out["req_takeoff"])
+        fc = fc._replace(
+            have_ack=fc.have_ack | to_req,
+            ack_res=W(to_req, 0, fc.ack_res),
+            ack_ms=W(to_req, bt, fc.ack_ms),
+            accept_ms=W(to_req, bt, fc.accept_ms),
+            takeoff_active=fc.takeoff_active | to_req,
+            takeoff_target=W(to_req, out["req_takeoff"], fc.takeoff_target),
+        )
+        clear = out["clear_takeoff_ack"]
+        fc = fc._replace(
+            have_ack=W(clear, False, fc.have_ack),
+            ack_ms=W(clear, 0, fc.ack_ms),
+            accept_ms=W(clear, 0, fc.accept_ms),
+        )
+        kind = out["cmd_kind"]
+        cmd = out["cmd"]
+        body = kind == CMD_VEL_BODY
+        pos = kind == CMD_POS_YAW
+        fc = fc._replace(
+            vset_bx=W(body, cmd[..., 0], 0.0),
+            vset_by=W(body, cmd[..., 1], 0.0),
+            yaw_rate_cmd=W(body, cmd[..., 3], 0.0),
+            climb_cmd=W(kind == CMD_VEL_NED, -cmd[..., 2], 0.0),
+            pos_hold=pos,
+            pos_cmd=W(pos[..., None], cmd[..., :3], fc.pos_cmd),
+            pos_cmd_yaw=W(pos, cmd[..., 3], fc.pos_cmd_yaw),
+        )
 
-    # ---- dynamics ----
-    spool = fc.armed & (fc.takeoff_active | airborne)
-    motor = W(fc.armed, W(spool, torch.clamp(fc.motor + float(_F32(900.0) * dt),
-                                             max=1600.0), fc.motor),
-              1000.0)
-    lifted = fc.armed & (motor > 1150.0)
+        # ---- dynamics ----
+        spool = fc.armed & (fc.takeoff_active | airborne)
+        spun = torch.clamp(fc.motor + float(_F32(900.0) * dt), max=1600.0)
+        motor = W(fc.armed, W(spool, spun, fc.motor), 1000.0)
+        lifted = fc.armed & (motor > 1150.0)
 
-    # vertical
-    climb = torch.zeros((B,), device=dev)
-    climb = W(fc.takeoff_active & (state.alt < fc.takeoff_target), _f(0.45),
-              climb)
-    climb = W(fc.mode == MODE_LAND, _f(-0.35), climb)
-    climb = W(fc.climb_cmd != 0, fc.climb_cmd, climb)
-    climb = W(fc.pos_hold, torch.clamp((-fc.pos_cmd[..., 2]) - state.alt,
-                                       _f(-0.3), _f(0.3)), climb)
-    alt = W(lifted, torch.clamp(state.alt + climb * fdt, min=0.0),
-            torch.clamp(state.alt - fdt, min=0.0))
-    fc = fc._replace(takeoff_active=fc.takeoff_active
-                     & ~(alt >= fc.takeoff_target), motor=motor)
+        # vertical
+        climb = torch.zeros((B,), device=dev)
+        climb = W(fc.takeoff_active & (state.alt < fc.takeoff_target),
+                  _f(0.45), climb)
+        climb = W(fc.mode == MODE_LAND, _f(-0.35), climb)
+        climb = W(fc.climb_cmd != 0, fc.climb_cmd, climb)
+        climb = W(fc.pos_hold, torch.clamp((-fc.pos_cmd[..., 2]) - state.alt,
+                                           _f(-0.3), _f(0.3)), climb)
+        alt = W(lifted, torch.clamp(state.alt + climb * fdt, min=0.0),
+                torch.clamp(state.alt - fdt, min=0.0))
+        fc = fc._replace(takeoff_active=fc.takeoff_active
+                         & ~(alt >= fc.takeoff_target), motor=motor)
 
-    # horizontal: body velocity setpoint or position P-control
-    c, s = _cos_f32(yaw_rad), _sin_f32(yaw_rad)
-    vwx_set = c * fc.vset_bx - s * fc.vset_by
-    vwy_set = s * fc.vset_bx + c * fc.vset_by
-    px = torch.clamp(fc.pos_cmd[..., 0] - mean[..., 0], _f(-0.5), _f(0.5))
-    py = torch.clamp(fc.pos_cmd[..., 1] - mean[..., 1], _f(-0.5), _f(0.5))
-    vwx_set = W(fc.pos_hold, px, vwx_set)
-    vwy_set = W(fc.pos_hold, py, vwy_set)
-    act = lifted & airborne
-    gain = float(min(dt / _F32(0.4), _F32(1.0)))
-    vx = W(act, state.vx + (vwx_set - state.vx) * gain, 0.0)
-    vy = W(act, state.vy + (vwy_set - state.vy) * gain, 0.0)
-    x = state.x + vx * fdt
-    y = state.y + vy * fdt
-    # stay inside the room (walls are solid)
-    margin = _f(0.15)
-    x = torch.clamp(x, world.room[..., 0] + margin, world.room[..., 2] - margin)
-    y = torch.clamp(y, world.room[..., 1] + margin, world.room[..., 3] - margin)
-    yaw = _wrap(state.yaw + W(act, fc.yaw_rate_cmd, 0.0) * fdt)
+        # horizontal: body velocity setpoint or position P-control
+        c, s = _cos_f32(yaw_rad), _sin_f32(yaw_rad)
+        vwx_set = c * fc.vset_bx - s * fc.vset_by
+        vwy_set = s * fc.vset_bx + c * fc.vset_by
+        px = torch.clamp(fc.pos_cmd[..., 0] - mean[..., 0], _f(-0.5), _f(0.5))
+        py = torch.clamp(fc.pos_cmd[..., 1] - mean[..., 1], _f(-0.5), _f(0.5))
+        vwx_set = W(fc.pos_hold, px, vwx_set)
+        vwy_set = W(fc.pos_hold, py, vwy_set)
+        act = lifted & airborne
+        gain = float(min(dt / _F32(0.4), _F32(1.0)))
+        vx = W(act, state.vx + (vwx_set - state.vx) * gain, 0.0)
+        vy = W(act, state.vy + (vwy_set - state.vy) * gain, 0.0)
+        x = state.x + vx * fdt
+        y = state.y + vy * fdt
+        # stay inside the room (walls are solid)
+        margin = _f(0.15)
+        x = torch.clamp(x, world.room[..., 0] + margin,
+                        world.room[..., 2] - margin)
+        y = torch.clamp(y, world.room[..., 1] + margin,
+                        world.room[..., 3] - margin)
+        yaw = _wrap(state.yaw + W(act, fc.yaw_rate_cmd, 0.0) * fdt)
 
     new_state = SimState(
         t_ms=t, gen=gen, x=x, y=y, yaw=yaw, vx=vx, vy=vy,
@@ -688,28 +736,33 @@ def scan_tick_count(t_ms: int, n_steps: int, dt_ms: int,
 def sim_run(state: SimState, world: World, n_steps: int,
             cfg: PipelineConfig = UL_PROFILE, geom: GridGeom = DEFAULT_GEOM,
             dt_ms: int = 20, scan_period_ms: int = 100,
-            record: bool = False, vision_flow: bool = False, draws=None):
+            record: bool = False, vision_flow: bool = False, draws=None,
+            noise_mm: float = 5.0, dropout_p: float = 0.02):
     """Run n_steps closed-loop ticks; returns the final state and the
     diagnostics stacked over the steps ([T, B, ...] tensors; with raw
     scans when record=True).  draws, when given, holds one (normal,
     uniform) pair per scan tick of the run, in order (see sim_step);
     otherwise the state's generator draws them.  vision_flow replaces the
     oracle flow sensor with pyramidal LK on rendered downward-camera
-    frames."""
-    diags = []
-    k = 0
-    for _ in range(n_steps):
-        due = is_scan_tick(state.t_ms + dt_ms, scan_period_ms)
-        d = draws[k] if (due and draws is not None) else None
-        k += int(due)
-        state, diag = sim_step(state, world, cfg, geom, dt_ms, scan_period_ms,
-                               record=record, vision_flow=vision_flow,
-                               draws=d)
-        diags.append(diag)
-    if not diags:
-        return state, {}
-    return state, {key: torch.stack([dg[key] for dg in diags])
-                   for key in diags[0]}
+    frames.  noise_mm and dropout_p are the ToF model's (sim_step)."""
+    with obs.span("sim", state.x.device):
+        diags = []
+        k = 0
+        for _ in range(n_steps):
+            due = is_scan_tick(state.t_ms + dt_ms, scan_period_ms)
+            d = draws[k] if (due and draws is not None) else None
+            k += int(due)
+            state, diag = sim_step(state, world, cfg, geom, dt_ms,
+                                   scan_period_ms, noise_mm, dropout_p,
+                                   record=record, vision_flow=vision_flow,
+                                   draws=d)
+            diags.append(diag)
+        if not diags:
+            return state, {}
+        diag = {key: torch.stack([dg[key] for dg in diags])
+                for key in diags[0]}
+        obs.count("sim.turning", lambda: diag["state"] == ST_TURNING)
+    return state, diag
 
 
 def select_lanes(tree, lanes):

@@ -27,7 +27,9 @@ Plus the port's tracer: stage spans and counters inside the replays.
                   Otherwise it is one flag check and a shared no-op.
   count(name, n)  a counter: a host integer is always counted; a device
                   tensor only while spans record, summed on the card and
-                  read once when the root span exits.
+                  read once when the root span exits.  n may be a callable
+                  that returns the tensor: it is called only while spans
+                  record, so an untraced run issues no operation for it.
   counters()      the counter table; take() returns the spans and the
                   counters and clears them.
   profile_trace   the operator's exporter: trace.json and spans.json
@@ -320,7 +322,12 @@ class Tracer:
     def count(self, name: str, n=1) -> None:
         """Add n to the counter `name`: a host integer always; a device
         tensor (summed over its elements) only while spans record, on the
-        card until the root span exits or the table is read."""
+        card until the root span exits or the table is read.  A callable
+        n is called for the tensor only while spans record."""
+        if callable(n):
+            if not _profiler._is_profiler_enabled:
+                return
+            n = n()
         if not isinstance(n, torch.Tensor):
             self.counts[name] = self.counts.get(name, 0) + int(n)
         elif _profiler._is_profiler_enabled:
