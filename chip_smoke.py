@@ -10,8 +10,9 @@ the SLAM replay (slam_replay: EKF odometry, scan matching, pose graph,
 re-raster) and the closed-loop swarm simulator (models/simulator.py), and
 builds and checks their hand-written CUDA kernels (csrc/replay_exact.cu
 with its snapshot and map-step entries, csrc/replay_cone.cu,
-csrc/match_lattice.cu, and the replays' carry kernel, csrc/carry.cuh,
-which both replay libraries export).  Each phase prints one line and raises on
+csrc/match_lattice.cu, the replays' carry kernel, csrc/carry.cuh,
+which both replay libraries export, and the EKF replay kernel,
+csrc/ekf.cuh, SLAM pass 0).  Each phase prints one line and raises on
 failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -23,7 +24,9 @@ failure; nothing falls back to the CPU.  Phases:
   3. the carry kernel (csrc/carry.cuh) of both replay libraries ==
      carry_plain on the card, bit for bit (every output and the final
      carry), on the replay cases below, and resumed at frame 30 == the
-     whole run; then
+     whole run; the EKF replay kernel (csrc/ekf.cuh) == ekf_replay_plain
+     on the card, bit for bit, on the SLAM bench flights at B=128 and a
+     drifting copy that recenters, the schedule off and on; then
      exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames, short beams, and
@@ -63,7 +66,9 @@ failure; nothing falls back to the CPU.  Phases:
      program's stage spans and counters in the profiled replay, launches,
      device busy and idle share, and the lattice kernel
      and snapshot entry alone against their plain versions and bounds,
-     with the lattice kernel's ratio to its bound and build facts);
+     with the lattice kernel's ratio to its bound and build facts; one
+     EKF replay launch a SLAM replay, and that kernel alone at B=128 x
+     T=256 against ekf_replay_plain, its bytes and its dispatch bound);
      and the EKF bench at B=1024; the carry kernel alone on the
      bench frames (ms a launch, device ms, carry_plain's ms, the bytes
      bound).  The hybridx grids' per-flight sums
@@ -99,8 +104,9 @@ failure; nothing falls back to the CPU.  Phases:
      at full width (the 4 SLAM bench flights replicated to B=128, T=256):
      pass 1 alone equal to the JAX package's sequential pass, the
      launches counted against the pipeline's loops (match_lattice 29,
-     replay_exact 22, the snapshot entry none), each run bit-equal to its
-     twin with the kernels' plain versions on the card, and against the
+     replay_exact 22, ekf_replay 1, the snapshot entry none), each run
+     bit-equal to its twin with the kernels' plain versions on the card
+     (the EKF replay's too), and against the
      JAX package's CPU run (slam_fb_ref) within the SLAM tolerances on
      all 4 flights, grid sums equal, with frames/s and the stage spans;
  11. the sharded entries (parallel/mesh.py) over ["cuda:0", "cuda:0"]
@@ -197,11 +203,17 @@ KERNELS = {
         # (no Pallas kernel of its own)
         "source": "micro_quad_slam_tpu_torch/csrc/carry.cuh",
         "replaces": "micro_quad_slam_tpu/ops/pallas_resident.py:139"},
+    "ekf_replay": {
+        # SLAM pass 0 (the EKF and the recenter schedule) and the fusion
+        # replay, exported by the exact kernel's library; the counterpart
+        # of the EKF lax.scan (no Pallas kernel of its own)
+        "source": "micro_quad_slam_tpu_torch/csrc/ekf.cuh",
+        "replaces": "micro_quad_slam_tpu/replay/fusion.py:100"},
 }
 # the kernels whose wrappers count each launch in the counter
 # launches.<name> (utils/obs.py)
 LAUNCHED = ("replay_exact", "replay_cone", "match_lattice",
-            "replay_exact_snap", "map_step", "carry")
+            "replay_exact_snap", "map_step", "carry", "ekf_replay")
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -430,13 +442,14 @@ def _sass_counts(path) -> dict:
 
 # the kernels' occupancy queries: source -> {function: (its C entry, the
 # entry's argument, or {label: argument} for a kernel launched at several
-# shapes)}; the carry entry takes none
+# shapes)}; the carry and EKF entries take none
 OCCUPANCY = {
     "replay_exact": {
         "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
         "replay_exact_kernel<true>": ("mqs_replay_exact_blocks_per_sm", 1),
         "map_step_kernel": ("mqs_replay_exact_blocks_per_sm", 2),
-        "carry_kernel": ("mqs_carry_blocks_per_sm", None)},
+        "carry_kernel": ("mqs_carry_blocks_per_sm", None),
+        "ekf_replay_kernel": ("mqs_ekf_replay_blocks_per_sm", None)},
     "replay_cone": {
         "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
         "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
@@ -621,6 +634,109 @@ def phase_carry_bench(device, smi: str, bench_launches: int,
         launches=launches, card=smi)
     return {"name": "carry", "route": "cuda", **KERNELS["carry"],
             "launches": bench_launches, "max_abs_err": 0, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def _ekf_cases(device, B: int = 128, T: int = 256) -> dict:
+    """The EKF replay kernel's smoke cases: the SLAM bench flights at
+    B x T as they are, and the same with every other flight drifting at
+    6 m/s in x and -9 m/s in y, so that the schedule recenters."""
+    frames = testdata.slam_bench_frames(B, T, device=device)
+    drift = {k: v.clone() for k, v in frames.items()}
+    drift["of_rate_x"][::2] += 6.0
+    drift["of_rate_y"][::2] -= 9.0
+    return {"bench": frames, "drifting": drift}
+
+
+def _ekf_origins(st0):
+    nan = torch.full_like(st0.mean[:, 0], math.nan)
+    return (nan, nan.clone())
+
+
+def phase_ekf_vs_plain(device) -> None:
+    """The EKF replay kernel == ekf_replay_plain on the card, bit for bit
+    (every output and the final state), on the SLAM bench flights at
+    B=128 x T=256 with the recenter schedule off and on (SLAM pass 0),
+    and on the drifting copy, which recenters."""
+    before = launch_counts()["ekf_replay"]
+    recenters = {}
+    for name, frames in _ekf_cases(device).items():
+        seq, st0 = fu.replay_operands(frames)
+        for origin0 in (None, _ekf_origins(st0)):
+            want = fu.ekf_replay_plain(seq, st0, UL_PROFILE, origin0)
+            got = fu.ekf_replay_kernel(seq, st0, UL_PROFILE, origin0)
+            tag = "ekf" if origin0 is None else "schedule"
+            # (final state, means, flow_used, the schedule or None)
+            assert_same(got[:3] + (got[3] or {},),
+                        want[:3] + (want[3] or {},), f"ekf_replay {name} {tag}")
+            if origin0 is not None:
+                recenters[name] = int(want[3]["do"].sum())
+    torch.cuda.synchronize()
+    launches = launch_counts()["ekf_replay"] - before
+    check(launches == 4, f"ekf replay kernel launched {launches} times")
+    check(recenters["drifting"] > 0 and recenters["bench"] == 0,
+          f"recenters {recenters}")
+    say("ekf_vs_plain", kernel="ekf_replay", cases=["bench", "drifting"],
+        schedule=[False, True], bit_equal=True, launches=launches,
+        recenters=recenters)
+
+
+def phase_ekf_replay_bench(device, smi: str, slam_launches: int,
+                           B: int = 128, T: int = 256,
+                           reps: int = 20) -> dict:
+    """The EKF replay kernel alone at SLAM pass 0's shape (the SLAM bench
+    flights, B=128 x T=256, the schedule on): its ms a launch by CUDA
+    events and its device time in a few profiled launches, against
+    ekf_replay_plain on the card (pass 0 before the kernel), the bytes
+    bound and the dispatch bound (the kernel's static SASS instructions a
+    frame, one instruction a clock for the walking warp, at the card's
+    maximum SM clock).  Returns the kernel's entry of the kernels line,
+    with the launches of the SLAM bench (`slam_launches`)."""
+    frames = testdata.slam_bench_frames(B, T, device=device)
+    seq, st0 = fu.replay_operands(frames)
+    origin0 = _ekf_origins(st0)
+    plain = lambda: fu.ekf_replay_plain(seq, st0, UL_PROFILE, origin0)  # noqa: E731
+    fn = lambda: fu.ekf_replay_kernel(seq, st0, UL_PROFILE, origin0)  # noqa: E731
+    assert_same(fn(), plain(), "ekf_replay on the bench flights")
+    before = launch_counts()["ekf_replay"]
+    ms = _time_call(fn, reps)
+    launches = launch_counts()["ekf_replay"] - before
+    check(launches == reps, f"ekf replay kernel launched {launches} of "
+          f"{reps}")
+    plain_ms = _time_call(plain, 2)
+    busy = _profiled_busy(lambda: [fn() for _ in range(5)],
+                          ("ekf_replay_kernel",))
+    n_prof = sum(busy["kernel_launches"].values())
+    device_ms = (sum(busy["kernel_device_ms"].values()) / n_prof
+                 if n_prof else None)
+    # bytes: every input read once (dt, yaw, 2 flow rates, range, quality;
+    # the state and origins at frame 0), every output written once (the
+    # mean, flow_used, the origins, the flag and the shifts; the final
+    # state)
+    per_frame = 6 * 4 + (8 * 4 + 1 + 5 * 4)
+    per_flight = (8 + 64 + 2) * 4 + (8 + 64) * 4
+    nbytes = B * T * per_frame + B * per_flight
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    sass = BUILD_FACTS.get("replay_exact", {}).get(
+        "ekf_replay_kernel", {}).get("sass") or {}
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    dispatch_ms = (T * sass["instructions"] / (float(clock) * 1e6) * 1e3
+                if sass.get("instructions") else None)
+    say("kernel_alone", kernel="ekf_replay", B=B, T=T, ms=ms,
+        device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", bytes=nbytes, dispatch_bound_ms=dispatch_ms,
+        sass_instructions=sass.get("instructions"), max_sm_clock_mhz=clock,
+        profiled_launches=n_prof,
+        ratio_to_bound=None if device_ms is None else device_ms / bound_ms,
+        ratio_to_dispatch_bound=(None if device_ms is None or dispatch_ms is None
+                              else device_ms / dispatch_ms),
+        launches=launches, card=smi)
+    return {"name": "ekf_replay", "route": "cuda", **KERNELS["ekf_replay"],
+            "launches": slam_launches, "max_abs_err": 0, "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
@@ -1544,6 +1660,9 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     n_launch = launch_counts()
     for k in ("match_lattice", "replay_exact_snap", "replay_exact"):
         check(n_launch[k] >= reps + 1, f"slam {tag} never launched {k}")
+    check(n_launch["ekf_replay"] == reps + 1,
+          f"slam {tag}: {n_launch['ekf_replay']} EKF replay launches in "
+          f"{reps + 1} replays (one a replay)")
     ck = checksum(res.grid)
     ref = testdata.reference("slam_bench_ref")
     want = checksum(torch.from_numpy(np.concatenate(
@@ -1579,11 +1698,13 @@ def phase_slam_bench(device, smi: str, tag: str, B: int, T: int = 256,
     if tag != "ul":
         return {}
     alone = _slam_kernels_alone(frames, cfg, smi, busy)
+    ekf = phase_ekf_replay_bench(device, smi, n_launch["ekf_replay"], B, T)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    return {name: {"name": name, "route": "cuda", **KERNELS[name],
-                   "launches": n_launch[name],
-                   **{k: alone[name][k] for k in keys}, "library_ms": None}
-            for name in ("match_lattice", "replay_exact_snap")}
+    return {"ekf_replay": ekf, **{
+        name: {"name": name, "route": "cuda", **KERNELS[name],
+               "launches": n_launch[name],
+               **{k: alone[name][k] for k in keys}, "library_ms": None}
+        for name in ("match_lattice", "replay_exact_snap")}}
 
 
 def phase_ekf_bench(device, smi: str, B: int = 1024, T: int = 256,
@@ -1968,7 +2089,8 @@ def _wire_slam(device, cap) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _path_launches({"match_lattice": None, "replay_exact_snap": None,
-                             "replay_exact": 1}, "the wire slam_replay")
+                             "replay_exact": 1, "ekf_replay": 1},
+                            "the wire slam_replay")
     errs = {k: max(_track_err(getattr(res, k), ref[f"slam_{k}"]))
             for k in ("odo_track", "kf_nodes", "track")}
     sums = testdata.grid_sums(res.grid.cpu().numpy())
@@ -2128,7 +2250,8 @@ def _fb_launches(T: int, cfg) -> dict:
     of match_chunk_intervals keyframe intervals in each of slam_outer
     rounds, and pass 3 the exact kernel once; the loop stage launches the
     lattice kernel once, and once per refine round (loop_refine_early in
-    the rounds before the last, loop_refine in the last)."""
+    the rounds before the last, loop_refine in the last); pass 0 launches
+    the EKF replay kernel once."""
     s = cfg.slam
     chunks = -(-T // (s.kf_every * max(int(s.match_chunk_intervals), 1)))
     rounds = max(int(s.slam_outer), 1)
@@ -2137,7 +2260,7 @@ def _fb_launches(T: int, cfg) -> dict:
     loop = (rounds - 1) * (1 + max(int(early), 0)) + 1 + max(
         int(s.loop_refine), 0)
     return {"match_lattice": chunks * rounds + loop,
-            "replay_exact": chunks * rounds + 1}
+            "replay_exact": chunks * rounds + 1, "ekf_replay": 1}
 
 
 class _PlainKernels:
@@ -2146,12 +2269,13 @@ class _PlainKernels:
     names): the twin run of phase_slam_feedback."""
 
     def __enter__(self):
-        self.saved = (sm.match_lattice, rx.replay_exact)
+        self.saved = (sm.match_lattice, rx.replay_exact, fu.ekf_replay_kernel)
         sm.match_lattice = ml.match_lattice_plain
         rx.replay_exact = rx.replay_exact_plain
+        fu.ekf_replay_kernel = fu.ekf_replay_plain
 
     def __exit__(self, *exc):
-        sm.match_lattice, rx.replay_exact = self.saved
+        sm.match_lattice, rx.replay_exact, fu.ekf_replay_kernel = self.saved
 
 
 def _fb_vs_ref(res, ref: dict, form: str) -> dict:
@@ -2430,6 +2554,7 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     phase_carry_vs_plain(device)
+    phase_ekf_vs_plain(device)
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
     phase_slam_kernels_vs_plain(device)
@@ -2454,7 +2579,7 @@ def main() -> int:
     phase_slam_bench(device, smi, "rt", 256)
     phase_ekf_bench(device, smi)
     kernels += [slam["match_lattice"], slam["replay_exact_snap"],
-                phase_swarm_bench(device, smi)]
+                slam["ekf_replay"], phase_swarm_bench(device, smi)]
     loaded = _jax_package_loaded()
     check(not loaded, f"the port imported jax or the JAX package: {loaded}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -83,13 +83,16 @@
 //
 // The library also exports mqs_carry (carry.cuh, shared with
 // replay_cone.cu): the replay's sequential carry (the EMA, origins,
-// recenter schedule and gates) that makes this kernel's schedule.
+// recenter schedule and gates) that makes this kernel's schedule, and
+// mqs_ekf_replay (ekf.cuh): SLAM pass 0's EKF odometry and recenter
+// schedule, and the fusion replay.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "carry.cuh"
+#include "ekf.cuh"
 #include "recenter.cuh"
 
 namespace {

@@ -4,7 +4,8 @@ matching, an SE(2) pose graph with loop closures, and the re-raster of the
 map from the corrected track, for a [B] batch of flights.
 
   pass 0  EKF odometry and the grid's origin/recenter schedule in one
-          [B]-wide loop over T (the fusion replay with a hook).
+          replay over T (the fusion replay with its schedule on: one
+          launch of csrc/ekf.cuh's kernel on the card).
   pass 1  the feedback-free match map (the default): the keyframe scans
           land on each flight's grid at fixed pose estimates through one
           launch of the exact kernel's snapshot entry, which also copies
@@ -69,6 +70,7 @@ from micro_quad_slam_tpu_torch.ops.scanmatch import (
 from micro_quad_slam_tpu_torch.replay.fusion import (
     DEG2RAD,
     RAD2DEG,
+    SCHED_KEYS,
     _ekf_replay_batched,
 )
 from micro_quad_slam_tpu_torch.slam.posegraph import (
@@ -103,36 +105,18 @@ def _ekf_track(frames, cfg):
 
 
 def _odo_and_schedule(frames, cfg, origin0=None):
-    """EKF odometry and the origin/recenter schedule in one loop over T
-    (the fusion replay's, through its extra hook).  Returns (odo
-    [B, T, 3], sched {ox, oy, do, rsy, rsx} of [B, T]); equal to
-    _ekf_track + _origin_schedule."""
+    """EKF odometry and the origin/recenter schedule in one replay over T
+    (the fusion replay's, with its schedule on).  Returns (odo [B, T, 3],
+    sched {ox, oy, do, rsy, rsx} of [B, T]); equal to _ekf_track +
+    _origin_schedule."""
     if not cfg.slam.recenter:
         odo = _ekf_track(frames, cfg)
         return odo, _origin_schedule(odo, cfg, origin0)
-    B = frames["x_m"].shape[0]
-    res = _F32(cfg.map.res_m)
-    if origin0 is None:
-        nan = torch.full((B,), float("nan"), dtype=torch.float32,
-                         device=frames["x_m"].device)
-        origin0 = (nan, nan)
-
-    def sched_step(carry, mean, _frame):
-        ox, oy = carry
-        x, y = mean[..., 0], mean[..., 1]
-        # the first step adopts the first posterior as the origin
-        ox = torch.where(torch.isnan(ox), x, ox)
-        oy = torch.where(torch.isnan(oy), y, oy)
-        ok = torch.isfinite(x) & torch.isfinite(y)
-        sx, sy, do = recenter_decide(ox, oy, x, y, ok, cfg.map)
-        ox, oy = shift_origin(ox, sx, res), shift_origin(oy, sy, res)
-        return (ox, oy), {"ox": ox, "oy": oy, "do": do.to(torch.int32),
-                          "rsy": sy, "rsx": sx}
-
-    _, track = _ekf_replay_batched(frames, cfg, extra=(origin0, sched_step))
+    _, track = _ekf_replay_batched(frames, cfg, schedule=True,
+                                   origin0=origin0)
     odo = torch.stack([track["x"], track["y"], frames["yaw_deg"] * DEG2RAD],
                       dim=-1)
-    return odo, {k: track[k] for k in ("ox", "oy", "do", "rsy", "rsx")}
+    return odo, {k: track[k] for k in SCHED_KEYS}
 
 
 def _origin_schedule(odo, cfg, origin0=None):

@@ -144,31 +144,42 @@ def _flights(B=4, T=64):
 
 
 def _sched_hook_jax():
-    def step(c, mean, _f):
-        return c + mean[..., 0], {"acc": c + mean[..., 0]}
-    return (jnp.zeros(4, jnp.float32), step)
+    """The JAX SLAM pipeline's recenter hook (its _odo_and_schedule's
+    sched_step), from NaN origins: what the port's schedule flag runs."""
+    from micro_quad_slam_tpu.ops.raycast import recenter_decide, shift_origin
 
+    res = np.float32(JAX_UL.map.res_m)
 
-def _sched_hook_torch():
     def step(c, mean, _f):
-        return c + mean[..., 0], {"acc": c + mean[..., 0]}
-    return (torch.zeros(4), step)
+        ox, oy = c
+        x, y = mean[..., 0], mean[..., 1]
+        ox = jnp.where(jnp.isnan(ox), x, ox)
+        oy = jnp.where(jnp.isnan(oy), y, oy)
+        ok = jnp.isfinite(x) & jnp.isfinite(y)
+        sx, sy, do = recenter_decide(ox, oy, x, y, ok, JAX_UL.map)
+        ox, oy = shift_origin(ox, sx, res), shift_origin(oy, sy, res)
+        return (ox, oy), {"ox": ox, "oy": oy, "do": do.astype(jnp.int32),
+                          "rsy": sy, "rsx": sx}
+    nan = jnp.full((4,), jnp.nan, jnp.float32)
+    return ((nan, nan), step)
 
 
 @pytest.mark.parametrize("extra", [False, True])
 def test_ekf_replay_batched_equals_jax(extra):
+    """The plain replay, and with extra its recenter schedule (the port's
+    schedule flag against the JAX package's hook), against the JAX
+    package's scan."""
     f = _flights()
     j_st, j_tr = jax.jit(lambda f: jfusion._ekf_replay_batched(
         f, JAX_UL, _sched_hook_jax() if extra else None))(f)
     t_st, t_tr = tfusion._ekf_replay_batched(
-        port.frames_to_torch(f, "cpu"), port.UL_PROFILE,
-        _sched_hook_torch() if extra else None)
+        port.frames_to_torch(f, "cpu"), port.UL_PROFILE, schedule=extra)
     assert set(t_tr) == set(j_tr)
     for k in t_tr:
-        if t_tr[k].dtype == torch.bool:
+        if t_tr[k].dtype in (torch.bool, torch.int32):
             np.testing.assert_array_equal(t_tr[k].numpy(), np.asarray(j_tr[k]))
         else:
-            _close(j_tr[k], t_tr[k], atol=1e-4 if k == "acc" else ATOL)
+            _close(j_tr[k], t_tr[k])
     _close(j_st.mean, t_st.mean)
     _close(j_st.cov, t_st.cov)
     assert not t_tr["flow_used"][1, 20:30].any()

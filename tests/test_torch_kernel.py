@@ -1,6 +1,7 @@
 """The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
 map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu, the carry
-kernel of csrc/carry.cuh in both replay libraries) against
+kernel of csrc/carry.cuh in both replay libraries, the EKF replay kernel
+of csrc/ekf.cuh) against
 their plain torch versions, on the card, the simulator's card run
 against the committed JAX small swarm, and the SLAM's card run against
 its CPU run.  Every test here needs a
@@ -214,6 +215,115 @@ def test_one_carry_launch_per_mapping_replay_on_the_card(cuda, kernel):
     port.replay_mapping_batched(frames, UL_PROFILE, kernel=kernel)
     torch.cuda.synchronize()
     assert _launches("carry") == before + 1
+
+
+def _ekf_frames(case, device):
+    """The EKF replay kernel's card cases, from the 4 SLAM bench flights
+    (T = 256): as they are; with NaN yaw, rangefinder and flow samples,
+    flow quality under the gate, ranges under the floor and over 10 m, the
+    clock stepping back and jumping over 1 s (dt clipped to 0 and 1), and
+    flights 2-3 drifting at 6 and -9 m/s, which recenter (the schedule
+    clamps some shifts); 37 flights (a block and 5) under rigid offsets;
+    one flight; 61 frames (3 chunks and 13 frames) and 1."""
+    base, _ = testdata.load("slam_bench_flights")
+    f = {k: v[:4].copy() for k, v in base.items()}
+    if case == "gates_and_glitches":
+        nan = np.float32("nan")
+        f["yaw_deg"][0, 10:20] = nan
+        f["rf_m"][1, ::7] = nan
+        f["rf_m"][0, 30:36] = np.float32(0.02)
+        f["rf_m"][3, 40:44] = np.float32(12.0)
+        f["of_rate_x"][2, 5:50:3] = nan
+        f["of_rate_y"][0, 70:75] = nan
+        f["of_q"][3, 100:140] = 10
+        f["scan_ms"][1, 60:] -= 400
+        f["scan_ms"][2, 90:] += 5000
+        f["of_rate_x"][2] += np.float32(6.0)
+        f["of_rate_y"][3] -= np.float32(9.0)
+    elif case == "batch_37":
+        idx = np.arange(37) % 4
+        f = {k: v[idx] for k, v in f.items()}
+        k = np.arange(37, dtype=np.float32)[:, None]
+        f["x_m"] = f["x_m"] + np.float32(0.37) * k
+        f["y_m"] = f["y_m"] - np.float32(1.13) * k
+        f["yaw_deg"] = f["yaw_deg"] + np.float32(9.5) * k
+    elif case == "B_1":
+        f = {k: v[1:2] for k, v in f.items()}
+    elif case in ("T_61", "T_1"):
+        T = int(case[2:])
+        f = {k: v[:, :T] for k, v in f.items()}
+    return port.frames_to_torch(f, device)
+
+
+@pytest.mark.parametrize("recenter", [False, True], ids=["ekf", "schedule"])
+@pytest.mark.parametrize("case", ["bench", "gates_and_glitches", "batch_37",
+                                  "B_1", "T_61", "T_1", "origins"])
+def test_ekf_replay_kernel_bit_equals_plain_on_the_card(cuda, case,
+                                                        recenter):
+    """The EKF replay kernel against the torch loop on the card: every
+    output and the final state the same bits, with the recenter schedule
+    off and on (from NaN origins, or for "origins" from given ones 40 m
+    and -31 m away, so the first shifts clamp)."""
+    from micro_quad_slam_tpu_torch.replay import fusion as fu
+
+    frames = _ekf_frames("bench" if case == "origins" else case, cuda)
+    seq, st0 = fu.replay_operands(frames)
+    B = st0.mean.shape[0]
+    origin0 = None
+    if recenter:
+        nan = torch.full((B,), float("nan"), device=cuda)
+        origin0 = (nan, nan.clone())
+        if case == "origins":
+            origin0 = ((st0.mean[:, 0] + 40.0).contiguous(),
+                       (st0.mean[:, 1] - 31.0).contiguous())
+    before = _launches("ekf_replay")
+    got = fu.ekf_replay_kernel(seq, st0, UL_PROFILE, origin0)
+    torch.cuda.synchronize()
+    assert _launches("ekf_replay") == before + 1
+    want = fu.ekf_replay_plain(seq, st0, UL_PROFILE, origin0)
+    for name, a, b in (("mean", got[0].mean, want[0].mean),
+                       ("cov", got[0].cov, want[0].cov),
+                       ("means", got[1], want[1]),
+                       ("flow_used", got[2], want[2])):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert (got[3] is None) == (not recenter)
+    if recenter:
+        assert sorted(got[3]) == sorted(want[3])
+        for k in want[3]:
+            a, b = got[3][k], want[3][k]
+            assert a.dtype == b.dtype and a.shape == b.shape, k
+            assert torch.equal(_bits(a), _bits(b)), k
+    if case == "gates_and_glitches":
+        assert not want[2][3, 100:140].any() and want[2].any()
+        assert float(seq["dt"].min()) == 0.0 and float(seq["dt"].max()) == 1.0
+        if recenter:
+            do = want[3]["do"]
+            assert do[2].sum() >= 2 and do[3].sum() >= 2 and not do[:2].any()
+    if case == "origins" and recenter:
+        shift = UL_PROFILE.map.recenter_max_shift_cells
+        assert bool((want[3]["rsx"][:, 0] == -shift).all())
+        assert bool((want[3]["rsy"][:, 0] == shift).all())
+
+
+@pytest.mark.parametrize("recenter", [False, True])
+def test_one_ekf_replay_launch_per_slam_replay_on_the_card(cuda, recenter):
+    """SLAM pass 0 is one launch of the EKF replay kernel, the schedule's
+    on (the default) or off; so is the fusion replay."""
+    import dataclasses
+
+    from micro_quad_slam_tpu_torch.replay import fusion as fu
+    from micro_quad_slam_tpu_torch.slam import pipeline as sp
+
+    cfg = dataclasses.replace(UL_PROFILE, slam=dataclasses.replace(
+        UL_PROFILE.slam, recenter=recenter))
+    frames = testdata.slam_bench_frames(4, device=cuda)
+    before = _launches("ekf_replay")
+    sp.slam_replay(frames, cfg)
+    torch.cuda.synchronize()
+    assert _launches("ekf_replay") == before + 1
+    fu.replay_fusion_batched(frames, cfg)
+    assert _launches("ekf_replay") == before + 2
 
 
 @pytest.mark.parametrize("shape, n_yaw, T", [((104, 256), 7, 7),
