@@ -154,6 +154,7 @@ from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.ops import scanmatch as sm
 from micro_quad_slam_tpu_torch.models import simulator as sim
 from micro_quad_slam_tpu_torch.replay import fusion as fu
+from micro_quad_slam_tpu_torch.replay import mapping as tm
 from micro_quad_slam_tpu_torch.slam import pipeline as sp
 from micro_quad_slam_tpu_torch.utils import obs
 
@@ -174,7 +175,10 @@ METRIC = {"residentx": "fused_sensor_frames_per_sec_per_chip",
           "ekf": "ekf_frames_per_sec_per_chip",
           "swarm": "swarm_control_ticks_per_sec_per_chip"}
 PLAIN = {"residentx": "xla", "hybridx": "hybrid"}
-SOURCES = ("replay_exact", "replay_cone", "match_lattice")
+# the kernel libraries, csrc/<name>.cu: replay_exact, replay_cone,
+# match_lattice
+SOURCES = tuple(dict.fromkeys(
+    lib for e in _build.ENTRIES.values() for lib in e.libraries))
 KERNELS = {
     "replay_exact": {
         "source": "micro_quad_slam_tpu_torch/csrc/replay_exact.cu",
@@ -440,23 +444,22 @@ def _sass_counts(path) -> dict:
             for f, c in out.items()}
 
 
-# the kernels' occupancy queries: source -> {function: (its C entry, the
-# entry's argument, or {label: argument} for a kernel launched at several
-# shapes)}; the carry and EKF entries take none
+# the kernels' occupancy queries: function -> (its C entry, the entry's
+# argument, or {label: argument} for a kernel launched at several shapes);
+# the carry and EKF entries take none.  Which libraries export each entry
+# is ops/_build.py::ENTRIES's.
 OCCUPANCY = {
-    "replay_exact": {
-        "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
-        "replay_exact_kernel<true>": ("mqs_replay_exact_blocks_per_sm", 1),
-        "map_step_kernel": ("mqs_replay_exact_blocks_per_sm", 2),
-        "carry_kernel": ("mqs_carry_blocks_per_sm", None),
-        "ekf_replay_kernel": ("mqs_ekf_replay_blocks_per_sm", None)},
-    "replay_cone": {
-        "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
-        "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
-        "carry_kernel": ("mqs_carry_blocks_per_sm", None)},
-    "match_lattice": {
-        "match_lattice_kernel": ("mqs_match_lattice_blocks_per_sm",
-                                 {"pass1": 7, "loop": 5})}}
+    "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
+    "replay_exact_kernel<true>": ("mqs_replay_exact_blocks_per_sm", 1),
+    "map_step_kernel": ("mqs_replay_exact_blocks_per_sm", 2),
+    "carry_kernel": ("mqs_carry_blocks_per_sm", None),
+    "ekf_replay_kernel": ("mqs_ekf_replay_blocks_per_sm", None),
+    "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
+    "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
+    "match_lattice_kernel": ("mqs_match_lattice_blocks_per_sm",
+                             {"pass1": 7, "loop": 5})}
+# the replay libraries that export the carry kernel
+CARRY_LIBRARIES = _build.ENTRIES["mqs_carry"].libraries
 # the SLAM path's two lattices: stage -> (n_yaw, T), slab shape
 LATTICES = {"pass1": (7, 7), "loop": (5, 5)}
 SLAB_SHAPES = {"pass1": (104, 256), "loop": (96, 128)}
@@ -473,16 +476,15 @@ def phase_build() -> None:
         res = _ptxas_resources(info["log"])
         check(res, f"no ptxas resources in {name}'s build log")
         for r in res:
-            entry, a = OCCUPANCY[name][r["function"]]
+            entry, a = OCCUPANCY[r["function"]]
+            check(name in _build.ENTRIES[entry].libraries,
+                  f"{name} does not export {entry}")
             fn = getattr(_build.load_library(name), entry)
 
             def blocks(v, fname):
                 n = ctypes.c_int(0)
                 args = (ctypes.byref(n),) if v is None else (v,
                                                             ctypes.byref(n))
-                fn.argtypes = ([ctypes.c_int] * (len(args) - 1)
-                               + [ctypes.POINTER(ctypes.c_int)])
-                fn.restype = ctypes.c_int
                 check(fn(*args) == 0, f"occupancy query of {fname}")
                 return n.value
             r["blocks_per_sm"] = (
@@ -533,7 +535,7 @@ def phase_kernel_vs_plain(device) -> None:
         assert_same(k, replay(f, device, "xla"), name)
         (st, outs) = k
         if name in testdata.tile_flights():
-            sched = rx.schedule(port.frames_to_torch(f, device),
+            sched = tm.schedule(port.frames_to_torch(f, device),
                                 UL_PROFILE)[0]
             tile_loads[name] = _check_tile_case(name, sched)
         if name == "random_recenter":
@@ -552,7 +554,7 @@ def phase_kernel_vs_plain(device) -> None:
 
 def _carry_operands(frames) -> tuple:
     """The carry's operands at frame 0: (minima, seq, c0)."""
-    return rx.carry_operands(frames, UL_PROFILE)[1:]
+    return tm.carry_operands(frames, UL_PROFILE)[1:]
 
 
 def phase_carry_vs_plain(device) -> None:
@@ -564,31 +566,31 @@ def phase_carry_vs_plain(device) -> None:
     recenters = {}
     for name, f in cases.items():
         minima, seq, c0 = _carry_operands(port.frames_to_torch(f, device))
-        want = rx.carry_plain(minima, seq, c0, UL_PROFILE)
+        want = tm.carry_plain(minima, seq, c0, UL_PROFILE)
         recenters[name] = int(want[0]["do"].sum())
-        for lib in ("replay_exact", "replay_cone"):
-            got = rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
+        for lib in CARRY_LIBRARIES:
+            got = tm.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
             assert_same(got, want, f"carry {lib} {name}")
     minima, seq, c0 = _carry_operands(port.frames_to_torch(
         random_flights(), device))
     cut = lambda a, s: a[:, s].contiguous()                          # noqa: E731
-    head = rx.carry_kernel("replay_exact", cut(minima, slice(0, 30)),
+    lib = tm.MODES["exact"].library
+    head = tm.carry_kernel(lib, cut(minima, slice(0, 30)),
                            {k: cut(v, slice(0, 30)) for k, v in seq.items()},
                            c0, UL_PROFILE)
-    tail = rx.carry_kernel("replay_exact", cut(minima, slice(30, None)),
+    tail = tm.carry_kernel(lib, cut(minima, slice(30, None)),
                            {k: cut(v, slice(30, None))
                             for k, v in seq.items()}, head[1], UL_PROFILE)
     joined = {k: torch.cat([head[0][k], tail[0][k]], dim=1) for k in head[0]}
     assert_same((joined, tail[1]),
-                      rx.carry_plain(minima, seq, c0, UL_PROFILE),
+                      tm.carry_plain(minima, seq, c0, UL_PROFILE),
                       "carry resumed at frame 30")
     torch.cuda.synchronize()
     launches = launch_counts()["carry"] - before
     check(launches == 2 * len(cases) + 2,
           f"carry kernel launched {launches} times")
     check(recenters["random_recenter"] >= 1, "no recenter")
-    say("carry_vs_plain", kernel="carry", libraries=["replay_exact",
-                                                     "replay_cone"],
+    say("carry_vs_plain", kernel="carry", libraries=list(CARRY_LIBRARIES),
         cases=list(cases), resumed_at=30, bit_equal=True,
         launches=launches, recenters=recenters)
 
@@ -602,13 +604,13 @@ def phase_carry_bench(device, smi: str, bench_launches: int,
     launches of the bench runs (`bench_launches`, from phase_bench)."""
     frames = port.frames_to_torch(testdata.bench_frames(B, T), device)
     minima, seq, c0 = _carry_operands(frames)
-    plain = lambda: rx.carry_plain(minima, seq, c0, UL_PROFILE)     # noqa: E731
+    plain = lambda: tm.carry_plain(minima, seq, c0, UL_PROFILE)     # noqa: E731
     want = plain()
-    for lib in ("replay_exact", "replay_cone"):
-        assert_same(rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE), want,
+    for lib in CARRY_LIBRARIES:
+        assert_same(tm.carry_kernel(lib, minima, seq, c0, UL_PROFILE), want,
                     f"carry {lib} on the bench frames")
-    fn = lambda: rx.carry_kernel("replay_exact", minima, seq, c0,  # noqa: E731
-                                 UL_PROFILE)
+    fn = lambda: tm.carry_kernel(tm.MODES["exact"].library, minima,  # noqa: E731
+                                 seq, c0, UL_PROFILE)
     before = launch_counts()["carry"]
     ms = _time_call(fn, reps)
     launches = launch_counts()["carry"] - before
@@ -830,9 +832,7 @@ def _time_kernel(grids, fn, reps: int) -> float:
 
 
 def _schedule(frames, kernel: str):
-    if kernel == "residentx":
-        return rx.schedule(frames, UL_PROFILE)
-    return cx.schedule(frames, UL_PROFILE, hybrid=True)
+    return tm.schedule(frames, UL_PROFILE, mode=tm.KERNELS[kernel].mode)
 
 
 def _time_schedule(frames, kernel: str, reps: int) -> list:
@@ -1276,7 +1276,7 @@ def phase_bench(device, smi: str, kernel: str, B: int = 1024, T: int = 256,
 def _cone_mode_alone(frames, like, smi: str) -> None:
     """The cone kernel in cone mode (kernel names conex, resident_cone) on
     the bench schedule: its time against its plain version and its bound."""
-    sched = cx.schedule(frames, UL_PROFILE, hybrid=False)[0]
+    sched = tm.schedule(frames, UL_PROFILE, mode="cone")[0]
     grids = torch.zeros_like(like)
     ms = _time_kernel(grids, lambda g: cx.replay_cone(g, sched, UL_PROFILE,
                                                       False), 5)
@@ -1296,7 +1296,7 @@ def _cone_on_walls(like, smi: str, B: int = 1024) -> None:
     at many ranges, where its fans need their column search, unlike the
     bench hover's misses.  Time, plain time and bound."""
     frames = testdata.slam_bench_frames(B, device=like.device)
-    sched = cx.schedule(frames, UL_PROFILE, hybrid=True)[0]
+    sched = tm.schedule(frames, UL_PROFILE, mode="hybrid")[0]
     grids = torch.zeros_like(like)
     fn = lambda g: cx.replay_cone(g, sched, UL_PROFILE, True)   # noqa: E731
     fn(grids)                                                    # warm-up
@@ -1452,7 +1452,8 @@ def phase_slam_kernels_vs_plain(device) -> None:
           "the jumping slots do not reload the tile at every slot")
     # a whole flight's re-raster with the exact path's own recenters
     f = port.frames_to_torch(random_flights(), device)
-    beams, so, _, _ = rx.carry(f, UL_PROFILE, library="replay_exact")
+    beams, so, _, _ = tm.carry(f, UL_PROFILE,
+                               library=tm.MODES["exact"].library)
     check(int(so["do"].sum()) >= 2, "the random flights do not recenter")
     x = [beams, f["x_m"].nan_to_num(0.0), f["y_m"].nan_to_num(0.0),
          f["yaw_deg"].nan_to_num(0.0), so["ox"].nan_to_num(0.0),

@@ -8,12 +8,13 @@ as its CPU path and its twin in the on-card checks.
 
 Ported: the batched mapping replay (replay/mapping.py) in its
 bit-exact mode, with beam extraction and the ToF filter (ops/beams.py),
-the exact scan update and recentering (ops/raycast.py) and the
-whole-replay schedule and Hopper kernel (ops/residentx.py,
+the exact scan update and recentering (ops/raycast.py), the replay's
+carry and whole replay (replay/mapping.py, csrc/carry.cuh) and the
+exact schedule words and Hopper kernel (ops/residentx.py,
 csrc/replay_exact.cu); in its cone and hybrid production modes, with
-the dense inverse sensor model (ops/conemode.py) and their schedule and
-Hopper kernel (ops/conex.py, csrc/replay_cone.cu); the EKF fusion replay
-(ops/ekf.py, replay/fusion.py); and the SLAM replay (slam/pipeline.py)
+the dense inverse sensor model (ops/conemode.py) and their schedule words
+and Hopper kernel (ops/conex.py, csrc/replay_cone.cu); the EKF fusion replay
+(ops/ekf.py, replay/fusion.py, csrc/ekf.cuh); and the SLAM replay (slam/pipeline.py)
 with its pose graph (slam/posegraph.py), scan matcher (ops/scanmatch.py)
 and lattice kernel (ops/matchlattice.py, csrc/match_lattice.cu), and the
 exact kernel's snapshot and scheduled-chunk entries (ops/residentx.py);

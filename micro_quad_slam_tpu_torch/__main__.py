@@ -45,10 +45,8 @@ import sys
 import numpy as np
 import torch
 
-from micro_quad_slam_tpu_torch.replay.mapping import (
-    CONEX_KERNELS, EXACT_KERNELS, PER_FRAME_KERNELS)
+from micro_quad_slam_tpu_torch.replay.mapping import KERNELS
 
-KERNELS = PER_FRAME_KERNELS + EXACT_KERNELS + tuple(CONEX_KERNELS)
 DEVICE_HELP = ("torch device (default: cuda; without a CUDA device pass "
                "--device cpu)")
 
@@ -568,7 +566,7 @@ def main(argv=None) -> int:
                "formats/wirecap.py) instead of a scanlog")
     pr.add_argument("--out", help="write each flight's logical grid as .npy")
     pr.add_argument("--profile", default="ul", choices=("ul", "cl"))
-    pr.add_argument("--kernel", default="xla", choices=KERNELS,
+    pr.add_argument("--kernel", default="xla", choices=tuple(KERNELS),
                     help="xla: per-frame plain torch path; pallas and "
                          "pallas_db: per frame through the exact CUDA "
                          "kernel's map-step entry; residentx (and its "

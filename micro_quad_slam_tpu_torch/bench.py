@@ -43,11 +43,12 @@ import time
 import torch
 
 from micro_quad_slam_tpu_torch import testdata
-from micro_quad_slam_tpu_torch.replay.mapping import frames_to_torch
+from micro_quad_slam_tpu_torch.replay.mapping import (
+    KERNELS, frames_to_torch, replay_mapping_batched)
+from micro_quad_slam_tpu_torch.utils.device import as_device
 
 REF_FPS = 10.0            # the reference pipeline's fused-frame rate
 SWARM_NORTH_STAR = 1.024e6   # 1024 quads at 1 kHz
-CONE_KERNELS = ("cone", "resident_cone", "conex", "hybrid", "hybridx")
 
 
 def _env(name: str, default: int) -> int:
@@ -91,8 +92,6 @@ def bench_replay(kernel: str, B: int = 1024, T: int = 256, reps: int = 3,
                  device=None, first: bool = True, frames=None):
     """One replay line (bench.py:238-256): the whole batched replay
     through `kernel`.  Returns (line, (state, outs))."""
-    from micro_quad_slam_tpu_torch.replay.mapping import (
-        as_device, replay_mapping_batched)
     from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
     device = as_device(device)
@@ -109,7 +108,7 @@ def bench_replay(kernel: str, B: int = 1024, T: int = 256, reps: int = 3,
         "unit": "frames/s",
         "vs_baseline": round(fps / REF_FPS, 1),
         "kernel": kernel,
-        "exact": kernel not in CONE_KERNELS,
+        "exact": KERNELS[kernel].mode == "exact",
         "checksum": int32_checksum(state.grid),
         "device": device_name(device),
         "rep_seconds": times,
@@ -121,7 +120,6 @@ def bench_slam(profile: str = "acc", B: int = 128, T: int = 256,
                reps: int = 2, device=None, frames=None):
     """The SLAM line (bench.py:84-115): "acc" is UL_PROFILE, "rt"
     UL_RT_PROFILE.  Returns (line, SlamResult)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
     from micro_quad_slam_tpu_torch.slam.pipeline import slam_replay
     from micro_quad_slam_tpu_torch.utils.config import (UL_PROFILE,
                                                         UL_RT_PROFILE)
@@ -151,7 +149,6 @@ def bench_ekf(B: int = 1024, T: int = 256, reps: int = 2, device=None,
     checksum is the int32 sum of the track cast to int32.  Returns (line,
     track)."""
     from micro_quad_slam_tpu_torch.replay.fusion import replay_fusion_batched
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
     from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
     device = as_device(device)
@@ -179,7 +176,6 @@ def bench_swarm(B: int = 1024, T: int = 1000, reps: int = 2, device=None,
     100 ms.  `start` = (world, state) overrides the start.  Returns (line,
     (final state, diag))."""
     from micro_quad_slam_tpu_torch.models.simulator import sim_run
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
     from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
     device = as_device(device)

@@ -155,8 +155,8 @@ class BehaviorState(NamedTuple):
 
 def behavior_init(batch: int = 1, device=None) -> BehaviorState:
     """The machine's start state for `batch` quads on `device` (the CUDA
-    device unless told otherwise, replay/mapping.py::as_device)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+    device unless told otherwise, utils/device.py::as_device)."""
+    from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
     vals = {name: torch.full((batch,), dv, dtype=dt, device=device)
@@ -170,7 +170,7 @@ def behavior_state_from_numpy(d, device=None) -> BehaviorState:
     """A behaviour state held as numpy arrays (the JAX package's
     BehaviorState after `jax.tree.map(np.asarray, st)`, or any mapping with
     its field names) -> the port's BehaviorState on `device`."""
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+    from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
     d = d._asdict() if hasattr(d, "_asdict") else dict(d)

@@ -131,8 +131,8 @@ class BehaviorClState(NamedTuple):
 
 def behavior_cl_init(batch: int = 1, device=None) -> BehaviorClState:
     """The CL machine's start state for `batch` quads on `device` (the
-    CUDA device unless told otherwise, replay/mapping.py::as_device)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+    CUDA device unless told otherwise, utils/device.py::as_device)."""
+    from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
     vals = {name: torch.full((batch,), dv, dtype=dt, device=device)

@@ -77,13 +77,13 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
 from micro_quad_slam_tpu_torch.ops.residentx import map_step
 from micro_quad_slam_tpu_torch.replay.mapping import (
     MappingState,
-    as_device,
     mapping_init,
     mapping_state_from_numpy,
     mapping_state_to_numpy,
 )
 from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
+from micro_quad_slam_tpu_torch.utils.device import as_device
 
 _F32 = np.float32
 HEALTH_ALL = 0x01 | 0x2000 | 0x4000 | 0x400000

@@ -4,9 +4,9 @@ then one hand-written Hopper kernel that applies it to every quad's grid
 pallas_replay_conex and of the "cone2"/"hybrid2" modes of
 pallas_resident.py::_schedule).
 
-`schedule` runs the sequential [B]-wide carry over T that the exact path
-runs (ops/residentx.py::carry; on a CUDA tensor its kernel from this
-path's own library, replay_cone), then makes what every (quad, frame)
+From the sequential [B]-wide carry over T that every mode runs
+(replay/mapping.py::carry; on a CUDA tensor its kernel from this mode's
+own library, replay_cone), `sched_words` makes what every (quad, frame)
 contributes at once (ops/conemode.py::scan_inputs) and packs it into one
 int32 tensor [B, T, words]; float words hold their float32 bits:
 
@@ -25,12 +25,11 @@ int32 tensor [B, T, words]; float words hold their float32 bits:
 `replay_cone` applies a schedule to the grids in place: on a CUDA tensor
 it launches csrc/replay_cone.cu, on a CPU tensor it runs the plain
 version (`replay_cone_plain`, the same frame loop in torch ops), and on
-any other device it raises.
+any other device it raises.  replay/mapping.py::replay_whole runs the
+carry, the words and this kernel as one whole replay.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -48,12 +47,10 @@ from micro_quad_slam_tpu_torch.ops.residentx import (
     H_RSX,
     H_RSY,
     HDR,
-    carry,
     check_operands,
     check_supported,
-    count_replay,
+    recenter_scratch,
 )
-from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 
 H_EN, H_R0, H_C0 = 5, 6, 7
@@ -69,37 +66,32 @@ def words_of(hybrid: bool) -> int:
     return HYBRID_WORDS if hybrid else CONE_WORDS
 
 
-def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
-             state0=None, hybrid: bool = False):
-    """Grid-free cone (or hybrid) replay of frames [B, T, ...].
-
-    Returns (sched int32 [B, T, words_of(hybrid)], outs {used, kf_flags,
-    filt} [B, T, ...], final (origin_x, origin_y, inited, filt))."""
-    with obs.span("replay.carry"):
-        beams, so, outs, final = carry(frames, cfg, state0,
-                                       library="replay_cone")
+def sched_words(frames: dict, beams: torch.Tensor, so: dict,
+                cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
+                hybrid: bool = False):
+    """The cone (or hybrid) schedule of frames [B, T, ...] from the
+    replay's carry (replay/mapping.py::carry: its beams and the sequence
+    `so`).  Returns sched int32 [B, T, words_of(hybrid)]."""
     B, T = frames["x_m"].shape
     flat = lambda a: a.reshape((B * T,) + a.shape[2:])               # noqa: E731
-    with obs.span("replay.rays"):
-        inp = conemode.scan_inputs(
-            flat(beams), flat(frames["x_m"]), flat(frames["y_m"]),
-            flat(frames["yaw_deg"]), flat(so["ox"]), flat(so["oy"]),
-            flat(so["enabled"]), cfg.map, cfg.tof, geom, hybrid)
-        pcy, pcx = inp["pcy"] + geom.pad, inp["pcx"] + geom.pad
-        header = torch.stack([
-            pcy, pcx, flat(so["do"]).to(torch.int32), flat(so["sy"]),
-            flat(so["sx"]), inp["en"].to(torch.int32), pcy - geom.win_r,
-            pcx - geom.win_r], dim=-1)
-        floats = torch.cat([inp["oxc"][:, None], inp["oyc"][:, None],
-                            inp["packed"], inp["bounds"],
-                            torch.zeros((B * T, CONE_WORDS - W_BOUNDS - 18),
-                                        dtype=torch.float32,
-                                        device=pcx.device)], dim=-1)
-        parts = [header, floats.view(torch.int32)]
-        if hybrid:
-            parts += [inp["ex"], inp["ey"], inp["ed"]]
-        sched = torch.cat(parts, dim=-1).reshape(B, T, -1).contiguous()
-    return sched, outs, final
+    inp = conemode.scan_inputs(
+        flat(beams), flat(frames["x_m"]), flat(frames["y_m"]),
+        flat(frames["yaw_deg"]), flat(so["ox"]), flat(so["oy"]),
+        flat(so["enabled"]), cfg.map, cfg.tof, geom, hybrid)
+    pcy, pcx = inp["pcy"] + geom.pad, inp["pcx"] + geom.pad
+    header = torch.stack([
+        pcy, pcx, flat(so["do"]).to(torch.int32), flat(so["sy"]),
+        flat(so["sx"]), inp["en"].to(torch.int32), pcy - geom.win_r,
+        pcx - geom.win_r], dim=-1)
+    floats = torch.cat([inp["oxc"][:, None], inp["oyc"][:, None],
+                        inp["packed"], inp["bounds"],
+                        torch.zeros((B * T, CONE_WORDS - W_BOUNDS - 18),
+                                    dtype=torch.float32,
+                                    device=pcx.device)], dim=-1)
+    parts = [header, floats.view(torch.int32)]
+    if hybrid:
+        parts += [inp["ex"], inp["ey"], inp["ed"]]
+    return torch.cat(parts, dim=-1).reshape(B, T, -1).contiguous()
 
 
 def _frame_inputs(w: torch.Tensor, geom: GridGeom, hybrid: bool) -> dict:
@@ -155,58 +147,12 @@ def replay_cone(grids: torch.Tensor, sched: torch.Tensor,
     B, T = sched.shape[:2]
     if B == 0 or T == 0:
         return grids
-    fn = _build.load_library("replay_cone").mqs_replay_cone
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 15
-                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    # recenter staging, as replay_exact: only for replays that recenter
-    scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
-               else None)
     m, cone = cfg.map, conemode.ConeConfig()
     k = conemode.cone_constants(m.res_m, cfg.tof, cone)
-    with torch.cuda.device(grids.device):
-        stream = torch.cuda.current_stream(grids.device).cuda_stream
-        err = fn(
-            grids.data_ptr(), sched.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, T, sched.shape[2], int(hybrid), geom.prows, geom.pcols,
-            geom.pad, geom.width, geom.height, geom.win_rows, geom.win_cols,
-            m.lo_min, m.lo_max, cone.free_dec, cone.occ_inc,
-            k["skip"], k["inv_res"], k["maxr2"], k["free_margin"],
-            k["hit_band"], stream)
-    if err != 0:
-        raise RuntimeError(f"replay_cone kernel launch failed: CUDA error "
-                           f"{err}")
-    obs.count("launches.replay_cone")
+    _build.launch(None, "mqs_replay_cone", grids.device, grids, sched,
+                  recenter_scratch(grids, sched), B, T, sched.shape[2],
+                  int(hybrid), geom.prows, geom.pcols, geom.pad, geom.width,
+                  geom.height, geom.win_rows, geom.win_cols, m.lo_min,
+                  m.lo_max, cone.free_dec, cone.occ_inc, k["skip"],
+                  k["inv_res"], k["maxr2"], k["free_margin"], k["hit_band"])
     return grids
-
-
-def replay_conex(frames: dict, cfg: PipelineConfig,
-                 geom: GridGeom = DEFAULT_GEOM, state0=None,
-                 hybrid: bool = False):
-    """Whole cone (hybrid=False) or hybrid replay: frames dict of
-    [B, T, ...] tensors (one device).  Returns (MappingState [B], outs
-    [B, T]), bit-identical to the per-frame "cone" / "hybrid" replay,
-    recenters and resume included.  state0 resumes a prior replay's
-    MappingState.  While a torch profiler records it records the spans
-    replay, replay.carry, replay.rays and replay.kernel (utils/obs.py); it
-    counts replay.frames and replay.recenters (count_replay)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import (
-        MappingState, check_replay_inputs)
-
-    check_replay_inputs(frames, state0)
-    dev = frames["x_m"].device
-    B, T = frames["x_m"].shape
-    with obs.span("replay", dev):
-        sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom,
-                                                       state0, hybrid)
-        if state0 is not None:
-            grids = state0.grid.to(dev).clone(
-                memory_format=torch.contiguous_format)
-        else:
-            grids = torch.zeros((B, geom.prows, geom.pcols),
-                                dtype=torch.int8, device=dev)
-        with obs.span("replay.kernel"):
-            replay_cone(grids, sched, cfg, hybrid, geom)
-        count_replay(sched, B * T)
-    return MappingState(grids, ox, oy, inited, filt), outs

@@ -27,12 +27,9 @@ Each launch counts in the counter launches.match_lattice (utils/obs.py).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from micro_quad_slam_tpu_torch.ops import _build
-from micro_quad_slam_tpu_torch.utils import obs
 
 
 def _check(slabs, ry, rx, n_yaw: int) -> int:
@@ -89,19 +86,12 @@ def match_lattice(slabs, ry, rx, n_yaw: int) -> torch.Tensor:
                       device=slabs.device)
     if N == 0:
         return out
-    fn = _build.load_library("match_lattice").mqs_match_lattice
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(slabs.device):
-        stream = torch.cuda.current_stream(slabs.device).cuda_stream
-        err = fn(slabs.data_ptr(), ry.data_ptr(), rx.data_ptr(),
-                 out.data_ptr(), N, SR, SC, n_yaw, T, ry.shape[2], stream)
-    if err == -1:
+    try:
+        _build.launch(None, "mqs_match_lattice", slabs.device, slabs, ry, rx,
+                      out, N, SR, SC, n_yaw, T, ry.shape[2])
+    except _build.Refused:
         raise ValueError(f"the lattice kernel does not take {N} slabs "
                          f"{SR}x{SC} with {n_yaw}x{T}x{T} candidates and "
-                         f"{ry.shape[2]} beams (csrc/match_lattice.cu)")
-    if err != 0:
-        raise RuntimeError(f"match_lattice kernel launch failed: CUDA error "
-                           f"{err}")
-    obs.count("launches.match_lattice")
+                         f"{ry.shape[2]} beams (csrc/match_lattice.cu)"
+                         ) from None
     return out

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from micro_quad_slam_tpu_torch.utils.config import MapConfig, TofConfig
+from micro_quad_slam_tpu_torch.utils.device import as_device
 
 _F32 = np.float32
 _DEG2RAD = _F32(np.pi) / _F32(180.0)
@@ -79,9 +80,7 @@ def _f(x) -> float:
 def new_padded_grid(geom: GridGeom = DEFAULT_GEOM, batch: tuple = (),
                     device=None) -> torch.Tensor:
     """Zero padded grids [*batch, PR, PC] on `device` (the CUDA device
-    unless told otherwise, replay/mapping.py::as_device)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
-
+    unless told otherwise, utils/device.py::as_device)."""
     return torch.zeros(batch + (geom.prows, geom.pcols), dtype=torch.int8,
                        device=as_device(device))
 

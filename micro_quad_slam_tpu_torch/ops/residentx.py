@@ -4,14 +4,12 @@ hand-written Hopper kernel that applies it to every quad's grid
 "exact2" part of pallas_resident.py::_schedule).
 
 Everything except the grid depends only on the logged frames: origins,
-the recenter schedule, the ray endpoints and the enable gates.  So
-`schedule` runs the sequential [B]-wide carry over T (`carry`: ToF
-filter, map init, recenter decision, origin shift; ops/conex.py shares
-it) and then makes every ray of every (quad, frame) at once.  On a CUDA
-tensor the carry is one launch of csrc/carry.cuh's kernel, which both
-replay libraries export (`carry_kernel`); on a CPU tensor it is the
-plain torch loop over T (`carry_plain`).  The schedule packs the rays
-into one int32 tensor [B, T, WORDS]:
+the recenter schedule, the ray endpoints and the enable gates.  The
+sequential [B]-wide carry over T (ToF filter, map init, recenter
+decision, origin shift) is replay/mapping.py::carry, shared with the cone
+and hybrid modes; from its outputs `sched_words` makes every ray of
+every (quad, frame) at once and packs them into one int32 tensor
+[B, T, WORDS]:
 
     word  0..7    header: pose row, pose col (padded-grid cells), do,
                   recenter rows sy, recenter cols sx, any-valid-ray, and
@@ -24,7 +22,8 @@ into one int32 tensor [B, T, WORDS]:
 `replay_exact` applies a schedule to the grids in place: on a CUDA tensor
 it launches csrc/replay_exact.cu, on a CPU tensor it runs the plain
 version (`replay_exact_plain`, the same frame loop in torch ops), and on
-any other device it raises.
+any other device it raises.  replay/mapping.py::replay_whole runs the
+carry, the words and this kernel as one whole replay.
 
 The SLAM pipeline's entries (counterparts of pallas_residentx.py's
 pallas_map_chunk_sched, pallas_map_snap, pallas_map_chunk and
@@ -44,19 +43,12 @@ needs no host sync.  The replay's per-frame kernel names "pallas" and
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig
 from micro_quad_slam_tpu_torch.ops import _build
-from micro_quad_slam_tpu_torch.ops.beams import (
-    extract_beams,
-    tof_filter_update,
-    tof_filter_weights,
-)
 from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
@@ -64,7 +56,6 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
     cut_windows,
     make_rays,
     recenter_apply,
-    recenter_constants,
 )
 
 HDR = 8
@@ -106,197 +97,15 @@ def check_supported(cfg: PipelineConfig, geom: GridGeom) -> None:
                          + "; ".join(bad))
 
 
-def carry(frames: dict, cfg: PipelineConfig, state0=None, *, library: str):
-    """The sequential part of a whole replay, shared by every schedule
-    (the exact one here, the cone and hybrid one in ops/conex.py): the
-    ToF filter, map init, recenter decision and origin shift, carried
-    over T for the whole [B] batch, then the enable gates.  On a CUDA
-    device it is one launch of the carry kernel (`carry_kernel`) from the
-    calling schedule's `library`; on any other it is the plain torch loop
-    (`carry_plain`).
-
-    Returns (beams f32 [B, T, 4, 8], seq {ox, oy, sx, sy, do, enabled}
-    of [B, T], outs {used, kf_flags, filt} [B, T, ...], final (origin_x,
-    origin_y, inited, filt))."""
-    beams, minima, seq, c0 = carry_operands(frames, cfg, state0)
-    if seq["x_m"].device.type == "cuda":
-        so, final = carry_kernel(library, minima, seq, c0, cfg)
-    else:
-        so, final = carry_plain(minima, seq, c0, cfg)
-    outs = {"used": so["enabled"], "kf_flags": so.pop("kf_flags"),
-            "filt": so.pop("filt")}
-    return beams, so, outs, final
-
-
-# the per-frame inputs of the carry besides the ToF minima
-CARRY_KEYS = ("x_m", "y_m", "yaw_deg", "of_rate_x", "state", "of_q",
-              "sys_health")
-
-
-def carry_operands(frames: dict, cfg: PipelineConfig, state0=None) -> tuple:
-    """What the carry takes from frames [B, T, ...] and a resume state:
-    (beams f32 [B, T, 4, 8], minima f32 [B, T, 4], seq the CARRY_KEYS
-    tensors [B, T] (contiguous; state and of_q int32), c0 the carry at
-    the first frame: state0's (origin_x, origin_y, inited, filt), or a
-    fresh mapper's (NaN origins and filter, not inited))."""
-    x = frames["x_m"]
-    B, dev = x.shape[0], x.device
-    beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
-    seq = {k: frames[k].contiguous() for k in CARRY_KEYS}
-    seq["state"] = seq["state"].to(torch.int32)
-    seq["of_q"] = seq["of_q"].to(torch.int32)
-    if state0 is not None:
-        c0 = tuple(v.to(dev).contiguous() for v in (
-            state0.origin_x, state0.origin_y, state0.inited, state0.filt))
-    else:
-        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-        c0 = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
-              torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
-    return beams, minima, seq, c0
-
-
-def carry_plain(minima: torch.Tensor, seq: dict, c0: tuple,
-                cfg: PipelineConfig):
-    """Plain torch version of the carry kernel, on any device: a Python
-    loop over T of [B]-wide ops (tof_filter_update, init_and_recenter),
-    then the enable gates.  minima, seq and c0 as carry_operands gives
-    them.
-
-    Returns ({ox, oy, sx, sy, do, enabled, kf_flags} [B, T] and filt
-    [B, T, 4], final (origin_x, origin_y, inited, filt))."""
-    from micro_quad_slam_tpu_torch.replay.mapping import (
-        init_and_recenter, kf_flags_of, pose_good_for_mapping)
-
-    x, y, state = seq["x_m"], seq["y_m"], seq["state"]
-    ox, oy, inited, filt = c0
-    steps = {k: [] for k in ("ox", "oy", "inited", "sx", "sy", "do", "filt")}
-    for t in range(x.shape[1]):
-        filt = tof_filter_update(filt, minima[:, t], cfg.tof.filt_alpha)
-        ox, oy, inited, sx, sy, do = init_and_recenter(
-            ox, oy, inited, x[:, t], y[:, t], state[:, t], cfg)
-        for k, v in zip(steps, (ox, oy, inited, sx, sy, do, filt)):
-            steps[k].append(v)
-    so = {k: torch.stack(v, dim=1) for k, v in steps.items()}
-    so["enabled"] = so.pop("inited") & pose_good_for_mapping(
-        x, seq["yaw_deg"], seq["of_q"], seq["of_rate_x"], seq["sys_health"],
-        cfg.gates.of_min_quality)
-    so["kf_flags"] = kf_flags_of(so["do"])
-    return so, (ox, oy, inited, filt)
-
-
-def check_carry_operands(minima: torch.Tensor, seq: dict, c0: tuple) -> None:
-    """Raise on operands the carry kernel does not take: every tensor
-    contiguous on x_m's device, with carry_plain's shapes and minima,
-    poses, yaw and flow rate float32, state and flow quality int32, the
-    health word int32 or int64, and c0 (origin_x, origin_y float32 [B],
-    inited bool [B], filt float32 [B, 4])."""
-    x = seq["x_m"]
-    if x.dim() != 2:
-        raise ValueError(f"x_m must be [B, T], got {tuple(x.shape)}")
-    B, T = x.shape
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    ops = [("minima", minima, (B, T, 4), (f32,))]
-    ops += [(k, seq[k], (B, T), (f32,))
-            for k in ("x_m", "y_m", "yaw_deg", "of_rate_x")]
-    ops += [("state", seq["state"], (B, T), (i32,)),
-            ("of_q", seq["of_q"], (B, T), (i32,)),
-            ("sys_health", seq["sys_health"], (B, T), (i32, i64))]
-    ops += [(k, v, shape, (dt,)) for k, v, shape, dt in zip(
-        ("origin_x", "origin_y", "inited", "filt"), c0,
-        ((B,), (B,), (B,), (B, 4)), (f32, f32, torch.bool, f32))]
-    for name, v, shape, dtypes in ops:
-        if v.dtype not in dtypes:
-            raise TypeError(f"carry kernel: {name} must be "
-                            f"{' or '.join(map(str, dtypes))}, got {v.dtype}")
-        if tuple(v.shape) != shape:
-            raise ValueError(f"carry kernel: {name} must be of shape "
-                             f"{shape}, got {tuple(v.shape)}")
-        if v.device != x.device:
-            raise ValueError(f"carry kernel: {name} on {v.device}, x_m on "
-                             f"{x.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"carry kernel: {name} must be contiguous")
-    if x.device.type != "cuda":
-        raise ValueError(f"no carry kernel for device {x.device} "
-                         f"(carry_plain runs anywhere)")
-
-
-def carry_kernel(library: str, minima: torch.Tensor, seq: dict, c0: tuple,
-                 cfg: PipelineConfig):
-    """carry_plain's outputs from one launch of the carry kernel
-    (csrc/carry.cuh) in the replay library `library` ("replay_exact" or
-    "replay_cone", which both export it), on CUDA tensors; bit-equal to
-    carry_plain on the card.  Raises on operands it does not take
-    (check_carry_operands) and on a failed launch.  Each launch counts in
-    launches.carry (utils/obs.py)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import (
-        KF_MAP_RECENTER, SENSOR_XY_POSITION_CONTROL,
-        SENSOR_Z_ALTITUDE_CONTROL, airborne_bounds)
-
-    check_carry_operands(minima, seq, c0)
-    x = seq["x_m"]
-    B, T = x.shape
-    dev = x.device
-    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
-    so = {"ox": empty((B, T), torch.float32),
-          "oy": empty((B, T), torch.float32),
-          "sx": empty((B, T), torch.int32), "sy": empty((B, T), torch.int32),
-          "do": empty((B, T), torch.bool),
-          "enabled": empty((B, T), torch.bool),
-          "kf_flags": empty((B, T), torch.uint8),
-          "filt": empty((B, T, 4), torch.float32)}
-    final = (empty((B,), torch.float32), empty((B,), torch.float32),
-             empty((B,), torch.bool), empty((B, 4), torch.float32))
-    if B == 0:
-        return so, final
-    fn = _build.load_library(library).mqs_carry
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] * 4 + [ctypes.c_double]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    keep, a = tof_filter_weights(cfg.tof.filt_alpha)
-    thresh, res, max_shift = recenter_constants(cfg.map)
-    st_lo, st_hi = airborne_bounds(cfg)
-    health = seq["sys_health"]
-    ins = [minima] + [seq[k] for k in ("x_m", "y_m", "yaw_deg", "of_rate_x",
-                                       "state", "of_q")]
-    outs = [so[k] for k in ("ox", "oy", "sx", "sy", "do", "enabled",
-                            "kf_flags", "filt")]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[v.data_ptr() for v in ins], health.data_ptr(),
-                 int(health.dtype == torch.int64),
-                 *[v.data_ptr() for v in c0],
-                 *[v.data_ptr() for v in outs + list(final)],
-                 B, T, keep, a, thresh, res, 1.0 / res, max_shift,
-                 st_lo, st_hi,
-                 SENSOR_XY_POSITION_CONTROL | SENSOR_Z_ALTITUDE_CONTROL,
-                 cfg.gates.of_min_quality, KF_MAP_RECENTER, stream)
-    if err != 0:
-        raise RuntimeError(f"carry kernel launch failed: CUDA error {err}")
-    obs.count("launches.carry")
-    return so, final
-
-
-def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
-             state0=None):
-    """Grid-free replay of frames [B, T, ...]: reproduces mapping_step's
-    filter / init / recenter / enable sequence (`carry`) and makes every
-    ray.
-
-    Returns (sched int32 [B, T, WORDS], outs {used, kf_flags, filt}
-    [B, T, ...], final (origin_x, origin_y, inited, filt))."""
-    with obs.span("replay.carry"):
-        beams, so, outs, final = carry(frames, cfg, state0,
-                                       library="replay_exact")
-    # everything below is carry-free: vectorized over [B, T]
-    with obs.span("replay.rays"):
-        rays = make_rays(beams, frames["x_m"], frames["y_m"],
-                         frames["yaw_deg"], so["ox"], so["oy"],
-                         so["enabled"], cfg.map, cfg.tof)
-        sched = _pack(rays, so["do"], so["sy"], so["sx"], geom)
-    return sched, outs, final
+def sched_words(frames: dict, beams: torch.Tensor, so: dict,
+                cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM):
+    """The exact schedule of frames [B, T, ...] from the replay's carry
+    (replay/mapping.py::carry: its beams and the sequence `so`): every
+    ray of every (quad, frame) at once, packed.  Returns sched int32
+    [B, T, WORDS]."""
+    rays = make_rays(beams, frames["x_m"], frames["y_m"], frames["yaw_deg"],
+                     so["ox"], so["oy"], so["enabled"], cfg.map, cfg.tof)
+    return _pack(rays, so["do"], so["sy"], so["sx"], geom)
 
 
 def _pack(rays: dict, do, sy, sx, geom: GridGeom, r0s=None, c0s=None):
@@ -377,6 +186,15 @@ def check_operands(grids: torch.Tensor, sched: torch.Tensor,
         raise ValueError("grids and sched must be contiguous")
 
 
+def recenter_scratch(grids: torch.Tensor, sched: torch.Tensor):
+    """A replay kernel's recenter staging, one grid per quad, or None when
+    no frame of sched [B, T, words] recenters (header word H_DO; the
+    kernels read it only on a recentering frame).  Most replays never
+    recenter, so it costs a host sync to spare another copy of the
+    grids."""
+    return torch.empty_like(grids) if bool(sched[..., H_DO].any()) else None
+
+
 def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
                  cfg: PipelineConfig,
                  geom: GridGeom = DEFAULT_GEOM) -> torch.Tensor:
@@ -393,27 +211,11 @@ def replay_exact(grids: torch.Tensor, sched: torch.Tensor,
     B, T = sched.shape[:2]
     if B == 0 or T == 0:
         return grids
-    fn = _build.load_library("replay_exact").mqs_replay_exact
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    # recenter staging, one grid per quad; most replays never recenter
-    # (the kernel reads it only on a recentering frame), so it costs a
-    # host sync to spare another copy of the grids
-    scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
-               else None)
     m = cfg.map
-    with torch.cuda.device(grids.device):
-        stream = torch.cuda.current_stream(grids.device).cuda_stream
-        err = fn(
-            grids.data_ptr(), sched.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
-            geom.height, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"replay_exact kernel launch failed: CUDA error "
-                           f"{err}")
-    obs.count("launches.replay_exact")
+    _build.launch(None, "mqs_replay_exact", grids.device, grids,
+                  sched, recenter_scratch(grids, sched), B, T, WORDS,
+                  geom.prows, geom.pcols, geom.pad, geom.width, geom.height,
+                  geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec)
     return grids
 
 
@@ -449,24 +251,12 @@ def replay_exact_snap(grids: torch.Tensor, sched: torch.Tensor,
         raise ValueError(f"no exact replay kernel for device {grids.device}")
     if B == 0 or T == 0:
         return grids
-    fn = _build.load_library("replay_exact").mqs_replay_exact_snap
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    scratch = (torch.empty_like(grids) if bool(sched[..., H_DO].any())
-               else None)
     m = cfg.map
-    with torch.cuda.device(grids.device):
-        stream = torch.cuda.current_stream(grids.device).cuda_stream
-        err = fn(
-            grids.data_ptr(), sched.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), snaps.data_ptr(),
-            B, T, WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
-            geom.height, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec, n_kf,
-            rows, cols, stream)
-    if err != 0:
-        raise RuntimeError(f"replay_exact_snap kernel launch failed: CUDA "
-                           f"error {err}")
-    obs.count("launches.replay_exact_snap")
+    _build.launch(None, "mqs_replay_exact_snap", grids.device,
+                  grids, sched, recenter_scratch(grids, sched), snaps, B, T,
+                  WORDS, geom.prows, geom.pcols, geom.pad, geom.width,
+                  geom.height, geom.win_r, m.lo_min, m.lo_max,
+                  m.lo_free_dec, n_kf, rows, cols)
     return grids
 
 
@@ -517,18 +307,10 @@ def map_step(grids, beams, x, y, yaw_deg, origin_x, origin_y, enabled,
     B = grids.shape[0]
     if B == 0:
         return grids
-    fn = _build.load_library("replay_exact").mqs_map_step
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     m = cfg.map
-    with torch.cuda.device(grids.device):
-        stream = torch.cuda.current_stream(grids.device).cuda_stream
-        err = fn(grids.data_ptr(), words.data_ptr(), B, WORDS, geom.prows,
-                 geom.pcols, geom.win_r, m.lo_min, m.lo_max, m.lo_free_dec,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"map_step kernel launch failed: CUDA error {err}")
-    obs.count("launches.map_step")
+    _build.launch(None, "mqs_map_step", grids.device, grids, words,
+                  B, WORDS, geom.prows, geom.pcols, geom.win_r, m.lo_min,
+                  m.lo_max, m.lo_free_dec)
     return grids
 
 
@@ -639,40 +421,3 @@ def map_snap_plain(grids, beams, x, y, yaw_deg, ox, oy, do, rsy, rsx, wy0,
     g, sched, snaps = _snap_operands(grids, beams, x, y, yaw_deg, ox, oy, do,
                                      rsy, rsx, wy0, wx0, n_kf, cfg, geom)
     return replay_exact_plain(g, sched, cfg, geom, snaps, n_kf), snaps
-
-
-def replay_residentx(frames: dict, cfg: PipelineConfig,
-                     geom: GridGeom = DEFAULT_GEOM, state0=None):
-    """Whole exact replay: frames dict of [B, T, ...] tensors (one
-    device).  Returns (MappingState [B], outs [B, T]), bit-identical to
-    the per-frame replay and the golden C model, recenters and resume
-    included.  state0 resumes a prior replay's MappingState.  While a
-    torch profiler records it records the spans replay, replay.carry,
-    replay.rays and replay.kernel (utils/obs.py); it counts replay.frames
-    and replay.recenters (count_replay)."""
-    from micro_quad_slam_tpu_torch.replay.mapping import (
-        MappingState, check_replay_inputs)
-
-    check_replay_inputs(frames, state0)
-    dev = frames["x_m"].device
-    B, T = frames["x_m"].shape
-    with obs.span("replay", dev):
-        sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom,
-                                                       state0)
-        if state0 is not None:
-            grids = state0.grid.to(dev).clone(
-                memory_format=torch.contiguous_format)
-        else:
-            grids = torch.zeros((B, geom.prows, geom.pcols),
-                                dtype=torch.int8, device=dev)
-        with obs.span("replay.kernel"):
-            replay_exact(grids, sched, cfg, geom)
-        count_replay(sched, B * T)
-    return MappingState(grids, ox, oy, inited, filt), outs
-
-
-def count_replay(sched: torch.Tensor, frames: int) -> None:
-    """A whole replay's counters: its flight-frames, and (while spans
-    record) the flight-frames whose recenter flag (0 or 1) is set."""
-    obs.count("replay.frames", frames)
-    obs.count("replay.recenters", sched[..., H_DO])

@@ -28,8 +28,6 @@ from micro_quad_slam_tpu_torch.parallel.mesh import (
 )
 from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
 
-WHOLE_REPLAY_KERNELS = ("resident_cone", "residentx", "conex", "hybridx")
-
 
 def _tiny_logs(batch: int, T: int, seed: int = 0) -> list:
     from micro_quad_slam_tpu_torch.sim.synthio import synth_room_scanlog
@@ -115,7 +113,7 @@ def dryrun_multichip(devices) -> dict:
     from micro_quad_slam_tpu_torch.replay.fusion import (
         fusion_arrays, replay_fusion_batched)
     from micro_quad_slam_tpu_torch.replay.mapping import (
-        frames_to_torch, replay_mapping_batched, scanlog_to_arrays)
+        KERNELS, frames_to_torch, replay_mapping_batched, scanlog_to_arrays)
     from micro_quad_slam_tpu_torch.slam.pipeline import slam_replay
 
     devices = [torch.device(d) for d in devices]
@@ -126,7 +124,7 @@ def dryrun_multichip(devices) -> dict:
                                                   devices)
     if state.grid.shape[0] != 2 * n or int(metrics["frames_total"]) != 6 * n:
         raise AssertionError("sharded replay shapes")
-    for kernel in ("xla",) + WHOLE_REPLAY_KERNELS:
+    for kernel in ["xla"] + [k for k, r in KERNELS.items() if r.whole]:
         st, _, _ = replay_mapping_sharded(frames, UL_PROFILE, devices,
                                           kernel=kernel)
         st_un, _ = replay_mapping_batched(frames_to_torch(frames, dev0),

@@ -27,7 +27,6 @@ from micro_quad_slam_tpu_torch.ops.raycast import (
     recenter_decide,
     shift_origin,
 )
-from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
 
 _F32 = np.float32
@@ -167,7 +166,7 @@ def check_ekf_operands(seq: dict, st0: EkfState, origin0) -> None:
 def ekf_replay_kernel(seq: dict, st0: EkfState, cfg: PipelineConfig,
                       origin0=None):
     """ekf_replay_plain's outputs from one launch of the EKF replay kernel
-    (csrc/ekf.cuh, exported by the replay_exact library), on CUDA
+    (csrc/ekf.cuh; ops/_build.py::ENTRIES names its library), on CUDA
     tensors; bit-equal to ekf_replay_plain on the card.  Raises on
     operands it does not take (check_ekf_operands) and on a failed
     launch.  Each launch counts in launches.ekf_replay (utils/obs.py)."""
@@ -184,12 +183,6 @@ def ekf_replay_kernel(seq: dict, st0: EkfState, cfg: PipelineConfig,
         **{k: empty((B, T), torch.int32) for k in ("do", "rsy", "rsx")}}
     if B == 0:
         return final, means, flow, sched
-    fn = _build.load_library("replay_exact").mqs_ekf_replay
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 3
-                   + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_float] * 5
-                   + [ctypes.c_int] + [ctypes.c_float] * 4
-                   + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     e = cfg.ekf
     qdiag = (ctypes.c_float * 8)(*(_f(v) for v in (
         e.q_pos, e.q_pos, e.q_vel, e.q_vel, e.q_pos, e.q_vz, e.q_yaw,
@@ -202,18 +195,11 @@ def ekf_replay_kernel(seq: dict, st0: EkfState, cfg: PipelineConfig,
     outs += ([None] * 5 if sched is None
              else [sched[k] for k in ("ox", "oy", "do", "rsy", "rsx")])
     outs += [final.mean, final.cov]
-    ptr = lambda v: None if v is None else v.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[ptr(v) for v in ins + outs], B, T,
-                 int(origin0 is not None), qdiag, _f(e.r_yaw), _f(e.r_rf),
-                 _f(e.r_flow_vel), _f(e.min_ground_m), 10.0,
-                 e.min_flow_quality, _f(np.pi), _f(2.0 * np.pi), thresh,
-                 res, 1.0 / res, max_shift, stream)
-    if err != 0:
-        raise RuntimeError(f"EKF replay kernel launch failed: CUDA error "
-                           f"{err}")
-    obs.count("launches.ekf_replay")
+    _build.launch(None, "mqs_ekf_replay", dev, *ins, *outs, B, T,
+                  int(origin0 is not None), qdiag, _f(e.r_yaw), _f(e.r_rf),
+                  _f(e.r_flow_vel), _f(e.min_ground_m), 10.0,
+                  e.min_flow_quality, _f(np.pi), _f(2.0 * np.pi), thresh,
+                  res, 1.0 / res, max_shift)
     return final, means, flow, sched
 
 

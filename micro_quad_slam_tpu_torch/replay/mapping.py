@@ -15,31 +15,42 @@ Replay policy, identical to the JAX package and to golden_replay_mapping:
 Every function takes tensors with a leading flight dimension [B] and runs
 on the device those tensors live on; the functions that make tensors
 (frames_to_torch, mapping_init, mapping_state_from_numpy) put them on the
-CUDA device unless the caller passes another.  `kernel="xla"` is the
-per-frame plain torch path of the exact mode, "pallas" and "pallas_db"
-its per-frame path through the exact kernel's map-step entry
-(ops/residentx.map_step), "cone" and "hybrid" the per-frame paths of the
-dense production modes (ops/conemode.py).  The exact whole-replay names
-go to ops/residentx.replay_residentx, the cone and hybrid ones to
-ops/conex.replay_conex; each launches its Hopper kernel for CUDA tensors.
+CUDA device unless the caller passes another.  KERNELS maps every kernel
+name a replay takes to its mode (exact, cone or hybrid) and to its route:
+frame by frame (mapping_step) or the whole replay (replay_whole).  A whole
+replay runs the carry over T (`carry`: one launch of csrc/carry.cuh's
+kernel on a CUDA device), the mode's schedule words (MODES:
+ops/residentx.py for the exact mode, ops/conex.py for cone and hybrid)
+and the mode's Hopper kernel, which takes the CPU path on CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from functools import partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
-from micro_quad_slam_tpu_torch.ops import conemode
-from micro_quad_slam_tpu_torch.ops.beams import extract_beams, tof_filter_update
+from micro_quad_slam_tpu_torch.utils.device import as_device
+from micro_quad_slam_tpu_torch.ops import _build, conemode
+from micro_quad_slam_tpu_torch.ops import conex as cx
+from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.ops.beams import (
+    extract_beams,
+    tof_filter_update,
+    tof_filter_weights,
+)
 from micro_quad_slam_tpu_torch.ops.raycast import (
     DEFAULT_GEOM,
     GridGeom,
     apply_rays_,
     make_rays,
     recenter_apply,
+    recenter_constants,
     recenter_decide,
     shift_origin,
 )
@@ -58,18 +69,50 @@ ST_HOVER, ST_LANDING = 5, 8
 # Keyframe flag bit for recentering (uav_local_nav.c:225)
 KF_MAP_RECENTER = 1 << 5
 
-# kernel names with reference-exact semantics that go to the whole-replay
-# exact kernel (the JAX package's whole-replay and matmul formulations of
-# the same update give bit-identical grids)
-EXACT_KERNELS = ("residentx", "resident", "mxu", "mxu2")
-# the per-frame paths: the exact update in plain torch ("xla") and through
-# the exact kernel's map-step entry ("pallas", "pallas_db": the JAX
-# package's per-frame window kernels), and the dense production modes
-PER_FRAME_KERNELS = ("xla", "pallas", "pallas_db", "cone", "hybrid")
-# these names run the whole replay through the cone kernel (name ->
-# hybrid?; "resident_cone" is the JAX package's v1 cone kernel, the same
-# cone semantics)
-CONEX_KERNELS = {"conex": False, "resident_cone": False, "hybridx": True}
+
+class Route(NamedTuple):
+    """Where a kernel name sends a replay."""
+
+    mode: str      # the grid update: "exact", "cone" or "hybrid"
+    whole: bool    # the whole replay at once (replay_whole), else per frame
+
+
+# Every kernel name a replay takes.  The exact update: "xla" per frame in
+# plain torch, "pallas" and "pallas_db" (the JAX package's per-frame window
+# kernels) per frame through the exact kernel's map-step entry, "residentx"
+# whole; "resident", "mxu" and "mxu2" are the JAX package's other
+# whole-replay formulations of the same update, bit-identical.  The dense
+# production modes: "cone" and "hybrid" per frame in plain torch, "conex"
+# (and "resident_cone", the JAX package's v1 cone kernel) and "hybridx"
+# whole.
+KERNELS = {
+    "xla": Route("exact", False), "pallas": Route("exact", False),
+    "pallas_db": Route("exact", False), "cone": Route("cone", False),
+    "hybrid": Route("hybrid", False), "residentx": Route("exact", True),
+    "resident": Route("exact", True), "mxu": Route("exact", True),
+    "mxu2": Route("exact", True), "conex": Route("cone", True),
+    "resident_cone": Route("cone", True), "hybridx": Route("hybrid", True),
+}
+
+
+class Mode(NamedTuple):
+    """A whole-replay mode: the kernel library that exports its replay
+    kernel and the carry kernel; its schedule words, (frames, beams, the
+    carry's sequence, cfg, geom) -> sched int32 [B, T, words]; its kernel
+    call, (grids, sched, cfg, geom=) -> grids, in place."""
+
+    library: str
+    words: Callable
+    apply: Callable
+
+
+MODES = {
+    "exact": Mode("replay_exact", rx.sched_words, rx.replay_exact),
+    "cone": Mode("replay_cone", partial(cx.sched_words, hybrid=False),
+                 partial(cx.replay_cone, hybrid=False)),
+    "hybrid": Mode("replay_cone", partial(cx.sched_words, hybrid=True),
+                   partial(cx.replay_cone, hybrid=True)),
+}
 
 
 class MappingState(NamedTuple):
@@ -81,17 +124,6 @@ class MappingState(NamedTuple):
     origin_y: torch.Tensor
     inited: torch.Tensor     # bool [B]
     filt: torch.Tensor       # f32 [B, 4] EMA'd per-direction ToF minima
-
-
-def as_device(device=None) -> torch.device:
-    """The device an entry point puts its tensors on: CUDA unless the
-    caller names another.  Raises when CUDA is asked for and absent,
-    instead of landing on the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port's plain torch path on the CPU")
-    return device
 
 
 def mapping_init(batch: int = 1, geom: GridGeom = DEFAULT_GEOM,
@@ -184,6 +216,158 @@ def kf_flags_of(do):
     return torch.where(do, KF_MAP_RECENTER, 0).to(torch.uint8)
 
 
+def carry(frames: dict, cfg: PipelineConfig, state0=None, *, library: str):
+    """The sequential part of a whole replay, shared by every mode: the
+    ToF filter, map init, recenter decision and origin shift
+    (init_and_recenter), carried over T for the whole [B] batch, then the
+    enable gates.  On a CUDA device it is one launch of the carry kernel
+    (`carry_kernel`) from `library`, the mode's (MODES); on any other it
+    is the plain torch loop (`carry_plain`).
+
+    Returns (beams f32 [B, T, 4, 8], seq {ox, oy, sx, sy, do, enabled}
+    of [B, T], outs {used, kf_flags, filt} [B, T, ...], final (origin_x,
+    origin_y, inited, filt))."""
+    beams, minima, seq, c0 = carry_operands(frames, cfg, state0)
+    if seq["x_m"].device.type == "cuda":
+        so, final = carry_kernel(library, minima, seq, c0, cfg)
+    else:
+        so, final = carry_plain(minima, seq, c0, cfg)
+    outs = {"used": so["enabled"], "kf_flags": so.pop("kf_flags"),
+            "filt": so.pop("filt")}
+    return beams, so, outs, final
+
+
+# the per-frame inputs of the carry besides the ToF minima
+CARRY_KEYS = ("x_m", "y_m", "yaw_deg", "of_rate_x", "state", "of_q",
+              "sys_health")
+
+
+def carry_operands(frames: dict, cfg: PipelineConfig, state0=None) -> tuple:
+    """What the carry takes from frames [B, T, ...] and a resume state:
+    (beams f32 [B, T, 4, 8], minima f32 [B, T, 4], seq the CARRY_KEYS
+    tensors [B, T] (contiguous; state and of_q int32), c0 the carry at
+    the first frame: state0's (origin_x, origin_y, inited, filt), or a
+    fresh mapper's (NaN origins and filter, not inited))."""
+    x = frames["x_m"]
+    B, dev = x.shape[0], x.device
+    beams, minima = extract_beams(frames["grid_mm"], cfg.tof)
+    seq = {k: frames[k].contiguous() for k in CARRY_KEYS}
+    seq["state"] = seq["state"].to(torch.int32)
+    seq["of_q"] = seq["of_q"].to(torch.int32)
+    if state0 is not None:
+        c0 = tuple(v.to(dev).contiguous() for v in (
+            state0.origin_x, state0.origin_y, state0.inited, state0.filt))
+    else:
+        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
+        c0 = (nan, nan, torch.zeros((B,), dtype=torch.bool, device=dev),
+              torch.full((B, 4), math.nan, dtype=torch.float32, device=dev))
+    return beams, minima, seq, c0
+
+
+def carry_plain(minima: torch.Tensor, seq: dict, c0: tuple,
+                cfg: PipelineConfig):
+    """Plain torch version of the carry kernel, on any device: a Python
+    loop over T of [B]-wide ops (tof_filter_update, init_and_recenter),
+    then the enable gates.  minima, seq and c0 as carry_operands gives
+    them.
+
+    Returns ({ox, oy, sx, sy, do, enabled, kf_flags} [B, T] and filt
+    [B, T, 4], final (origin_x, origin_y, inited, filt))."""
+    x, y, state = seq["x_m"], seq["y_m"], seq["state"]
+    ox, oy, inited, filt = c0
+    steps = {k: [] for k in ("ox", "oy", "inited", "sx", "sy", "do", "filt")}
+    for t in range(x.shape[1]):
+        filt = tof_filter_update(filt, minima[:, t], cfg.tof.filt_alpha)
+        ox, oy, inited, sx, sy, do = init_and_recenter(
+            ox, oy, inited, x[:, t], y[:, t], state[:, t], cfg)
+        for k, v in zip(steps, (ox, oy, inited, sx, sy, do, filt)):
+            steps[k].append(v)
+    so = {k: torch.stack(v, dim=1) for k, v in steps.items()}
+    so["enabled"] = so.pop("inited") & pose_good_for_mapping(
+        x, seq["yaw_deg"], seq["of_q"], seq["of_rate_x"], seq["sys_health"],
+        cfg.gates.of_min_quality)
+    so["kf_flags"] = kf_flags_of(so["do"])
+    return so, (ox, oy, inited, filt)
+
+
+def check_carry_operands(minima: torch.Tensor, seq: dict, c0: tuple) -> None:
+    """Raise on operands the carry kernel does not take: every tensor
+    contiguous on x_m's device, with carry_plain's shapes and minima,
+    poses, yaw and flow rate float32, state and flow quality int32, the
+    health word int32 or int64, and c0 (origin_x, origin_y float32 [B],
+    inited bool [B], filt float32 [B, 4])."""
+    x = seq["x_m"]
+    if x.dim() != 2:
+        raise ValueError(f"x_m must be [B, T], got {tuple(x.shape)}")
+    B, T = x.shape
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    ops = [("minima", minima, (B, T, 4), (f32,))]
+    ops += [(k, seq[k], (B, T), (f32,))
+            for k in ("x_m", "y_m", "yaw_deg", "of_rate_x")]
+    ops += [("state", seq["state"], (B, T), (i32,)),
+            ("of_q", seq["of_q"], (B, T), (i32,)),
+            ("sys_health", seq["sys_health"], (B, T), (i32, i64))]
+    ops += [(k, v, shape, (dt,)) for k, v, shape, dt in zip(
+        ("origin_x", "origin_y", "inited", "filt"), c0,
+        ((B,), (B,), (B,), (B, 4)), (f32, f32, torch.bool, f32))]
+    for name, v, shape, dtypes in ops:
+        if v.dtype not in dtypes:
+            raise TypeError(f"carry kernel: {name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {v.dtype}")
+        if tuple(v.shape) != shape:
+            raise ValueError(f"carry kernel: {name} must be of shape "
+                             f"{shape}, got {tuple(v.shape)}")
+        if v.device != x.device:
+            raise ValueError(f"carry kernel: {name} on {v.device}, x_m on "
+                             f"{x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"carry kernel: {name} must be contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"no carry kernel for device {x.device} "
+                         f"(carry_plain runs anywhere)")
+
+
+def carry_kernel(library: str, minima: torch.Tensor, seq: dict, c0: tuple,
+                 cfg: PipelineConfig):
+    """carry_plain's outputs from one launch of the carry kernel
+    (csrc/carry.cuh) in the replay library `library` (one of
+    ops/_build.py::ENTRIES["mqs_carry"].libraries), on CUDA tensors;
+    bit-equal to carry_plain on the card.  Raises on operands it does not
+    take (check_carry_operands) and on a failed launch.  Each launch
+    counts in launches.carry (utils/obs.py)."""
+    check_carry_operands(minima, seq, c0)
+    x = seq["x_m"]
+    B, T = x.shape
+    dev = x.device
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    so = {"ox": empty((B, T), torch.float32),
+          "oy": empty((B, T), torch.float32),
+          "sx": empty((B, T), torch.int32), "sy": empty((B, T), torch.int32),
+          "do": empty((B, T), torch.bool),
+          "enabled": empty((B, T), torch.bool),
+          "kf_flags": empty((B, T), torch.uint8),
+          "filt": empty((B, T, 4), torch.float32)}
+    final = (empty((B,), torch.float32), empty((B,), torch.float32),
+             empty((B,), torch.bool), empty((B, 4), torch.float32))
+    if B == 0:
+        return so, final
+    keep, a = tof_filter_weights(cfg.tof.filt_alpha)
+    thresh, res, max_shift = recenter_constants(cfg.map)
+    st_lo, st_hi = airborne_bounds(cfg)
+    health = seq["sys_health"]
+    ins = [minima] + [seq[k] for k in ("x_m", "y_m", "yaw_deg", "of_rate_x",
+                                       "state", "of_q")]
+    outs = [so[k] for k in ("ox", "oy", "sx", "sy", "do", "enabled",
+                            "kf_flags", "filt")]
+    _build.launch(library, "mqs_carry", dev, *ins, health,
+                  int(health.dtype == torch.int64), *c0, *outs, *final,
+                  B, T, keep, a, thresh, res, 1.0 / res, max_shift, st_lo,
+                  st_hi,
+                  SENSOR_XY_POSITION_CONTROL | SENSOR_Z_ALTITUDE_CONTROL,
+                  cfg.gates.of_min_quality, KF_MAP_RECENTER)
+    return so, final
+
+
 def mapping_step(
     state: MappingState,
     frame: dict,
@@ -201,9 +385,10 @@ def mapping_step(
     `frame` holds [B]-leading tensors: either raw `grid_mm` int [B,4,8,8]
     or precomputed `beams`/`minima` (the replay loop extracts beams for
     all frames up front)."""
-    if kernel not in PER_FRAME_KERNELS:
+    route = KERNELS.get(kernel)
+    if route is None or route.whole:
         raise ValueError(f"unknown per-frame kernel {kernel!r}; one of "
-                         f"{PER_FRAME_KERNELS}")
+                         f"{[k for k, r in KERNELS.items() if not r.whole]}")
     if "beams" in frame:
         beams, minima = frame["beams"], frame["minima"]
     else:
@@ -227,14 +412,13 @@ def mapping_step(
         rays = make_rays(beams, x, y, yaw, origin_x, origin_y, enabled,
                          cfg.map, cfg.tof)
         apply_rays_(grid, rays, cfg.map, geom)
-    elif kernel in ("pallas", "pallas_db"):
-        from micro_quad_slam_tpu_torch.ops.residentx import map_step
-        map_step(grid, beams, x, y, yaw, origin_x, origin_y, enabled, cfg,
-                 geom)
+    elif route.mode == "exact":
+        rx.map_step(grid, beams, x, y, yaw, origin_x, origin_y, enabled, cfg,
+                    geom)
     else:
         inp = conemode.scan_inputs(beams, x, y, yaw, origin_x, origin_y,
                                    enabled, cfg.map, cfg.tof, geom,
-                                   hybrid=kernel == "hybrid")
+                                   hybrid=route.mode == "hybrid")
         conemode.apply_scans_(grid, inp, cfg.map, cfg.tof, geom)
 
     new_state = MappingState(grid, origin_x, origin_y, inited, filt)
@@ -289,32 +473,80 @@ def check_replay_inputs(frames: dict, state0) -> None:
             f"must continue the same batch)")
 
 
+def schedule(frames: dict, cfg: PipelineConfig, geom: GridGeom = DEFAULT_GEOM,
+             state0=None, mode: str = "exact"):
+    """Grid-free replay of frames [B, T, ...] in a whole-replay mode
+    (MODES): the carry, which reproduces mapping_step's filter / init /
+    recenter / enable sequence, in the span replay.carry, then the mode's
+    schedule words in the span replay.rays.
+
+    Returns (sched int32 [B, T, words], outs {used, kf_flags, filt}
+    [B, T, ...], final (origin_x, origin_y, inited, filt))."""
+    m = MODES[mode]
+    with obs.span("replay.carry"):
+        beams, so, outs, final = carry(frames, cfg, state0,
+                                       library=m.library)
+    # everything below is carry-free: vectorized over [B, T]
+    with obs.span("replay.rays"):
+        sched = m.words(frames, beams, so, cfg, geom)
+    return sched, outs, final
+
+
+def replay_whole(frames: dict, cfg: PipelineConfig = UL_PROFILE,
+                 geom: GridGeom = DEFAULT_GEOM, state0=None,
+                 mode: str = "exact"):
+    """Whole replay in a mode of MODES: frames dict of [B, T, ...] tensors
+    (one device).  Returns (MappingState [B], outs [B, T]), bit-identical
+    to the mode's per-frame replay (and, exact, to the golden C model),
+    recenters and resume included.  state0 resumes a prior replay's
+    MappingState.  The schedule, then one call of the mode's kernel on
+    fresh or resumed grids.  While a torch profiler records it records the
+    spans replay, replay.carry, replay.rays and replay.kernel
+    (utils/obs.py); it counts replay.frames and replay.recenters
+    (count_replay)."""
+    check_replay_inputs(frames, state0)
+    dev = frames["x_m"].device
+    B, T = frames["x_m"].shape
+    with obs.span("replay", dev):
+        sched, outs, (ox, oy, inited, filt) = schedule(frames, cfg, geom,
+                                                       state0, mode)
+        if state0 is not None:
+            grids = state0.grid.to(dev).clone(
+                memory_format=torch.contiguous_format)
+        else:
+            grids = torch.zeros((B, geom.prows, geom.pcols),
+                                dtype=torch.int8, device=dev)
+        with obs.span("replay.kernel"):
+            MODES[mode].apply(grids, sched, cfg, geom=geom)
+        count_replay(sched, B * T)
+    return MappingState(grids, ox, oy, inited, filt), outs
+
+
+def count_replay(sched: torch.Tensor, frames: int) -> None:
+    """A whole replay's counters: its flight-frames, and (while spans
+    record) the flight-frames whose recenter flag (0 or 1) is set."""
+    obs.count("replay.frames", frames)
+    obs.count("replay.recenters", sched[..., rx.H_DO])
+
+
 def replay_mapping_batched(frames: dict, cfg: PipelineConfig = UL_PROFILE,
                            geom: GridGeom = DEFAULT_GEOM,
                            kernel: str = "xla", state0=None):
     """Batched replay: frames dict of [B, T, ...] tensors (see
     frames_to_torch), all on one device -> (MappingState [B], outs [B, T]).
-    Every exact kernel name gives grids bit-equal to the reference;
-    "residentx" (and its aliases) runs the whole replay through the exact
-    Hopper kernel on a CUDA device, "pallas" and "pallas_db" go frame by
-    frame through its map-step entry.  "cone" and "hybrid" are the dense
-    production modes, per frame in plain torch; "conex" and
-    "resident_cone" (cone) and "hybridx" (hybrid) run the whole replay
-    through the cone Hopper kernel, bit-equal to the per-frame path.
+    `kernel` is a name of KERNELS.  Every exact name gives grids bit-equal
+    to the reference; each whole-replay name (replay_whole) is bit-equal
+    to its mode's per-frame path.
 
     state0 resumes a previous replay: pass the MappingState from an
     earlier call (or one carried over from the JAX package with
     mapping_state_from_numpy) and the continuation is bit-identical to
     replaying the concatenated frames in one call."""
-    if kernel in EXACT_KERNELS:
-        from micro_quad_slam_tpu_torch.ops.residentx import replay_residentx
-        return replay_residentx(frames, cfg, geom, state0=state0)
-    if kernel in CONEX_KERNELS:
-        from micro_quad_slam_tpu_torch.ops.conex import replay_conex
-        return replay_conex(frames, cfg, geom, state0=state0,
-                            hybrid=CONEX_KERNELS[kernel])
-    if kernel not in PER_FRAME_KERNELS:
+    route = KERNELS.get(kernel)
+    if route is None:
         raise ValueError(f"unknown kernel {kernel!r}")
+    if route.whole:
+        return replay_whole(frames, cfg, geom, state0, route.mode)
 
     check_replay_inputs(frames, state0)
     B, T = frames["x_m"].shape

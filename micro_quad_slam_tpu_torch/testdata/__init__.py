@@ -403,7 +403,7 @@ def cl_fuzz(B: int, device=None) -> dict:
     machine's step: the uint32 health bits widen to int64."""
     import torch
 
-    from micro_quad_slam_tpu_torch.replay.mapping import as_device
+    from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
     ref = reference("cl_fuzz_telemetry")

@@ -1,2 +1,2 @@
 """Utilities of the PyTorch port: its own copy of the configuration,
-observability helpers and checkpoints."""
+the entry points' default device, observability helpers and checkpoints."""

@@ -1,4 +1,4 @@
-"""PyTorch port, ops/residentx.py::carry on the CPU: the plain torch loop
+"""PyTorch port, replay/mapping.py::carry on the CPU: the plain torch loop
 (carry_plain) against a chain of per-frame mapping_step calls, no launch
 of the carry kernel, and the kernel wrapper's operand checks, which raise
 before anything is launched.  The kernel itself is held bit-equal to
@@ -10,12 +10,13 @@ import torch
 
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
-from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.replay import mapping as tm
 from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
 
 torch.set_num_threads(2)
+
+EXACT = tm.MODES["exact"].library
 
 
 def _flights():
@@ -29,7 +30,7 @@ def _flights():
 def test_carry_on_the_cpu_equals_a_chain_of_mapping_steps(cfg):
     frames = _flights()
     B, T = frames["x_m"].shape
-    _, so, outs, final = rx.carry(frames, cfg, library="replay_exact")
+    _, so, outs, final = tm.carry(frames, cfg, library=EXACT)
     st = tm.mapping_init(B, device="cpu")
     for t in range(T):
         st, o = tm.mapping_step(st, {k: v[:, t] for k, v in frames.items()},
@@ -53,7 +54,7 @@ def test_carry_on_the_cpu_equals_a_chain_of_mapping_steps(cfg):
 def test_carry_on_the_cpu_launches_no_kernel():
     frames = _flights()
     before = obs.counters().get("launches.carry", 0)
-    rx.carry(frames, UL_PROFILE, library="replay_exact")
+    tm.carry(frames, UL_PROFILE, library=EXACT)
     port.replay_mapping_batched(frames, UL_PROFILE, kernel="residentx")
     assert obs.counters().get("launches.carry", 0) == before
 
@@ -100,7 +101,7 @@ def test_double_product_gives_the_float_quotient(res):
 def _operands(B=3, T=5):
     """Valid CPU operands of carry_kernel: (minima, seq, c0)."""
     frames = {k: v[:B, :T] for k, v in _flights().items()}
-    return rx.carry_operands(frames, UL_PROFILE)[1:]
+    return tm.carry_operands(frames, UL_PROFILE)[1:]
 
 
 def _break(case, minima, seq, c0):
@@ -138,4 +139,4 @@ def test_carry_kernel_refuses_operands_it_does_not_take(case, error):
     tensors only, and carry sends CPU tensors to carry_plain."""
     minima, seq, c0 = _break(case, *_operands())
     with pytest.raises(error, match="carry kernel"):
-        rx.carry_kernel("replay_exact", minima, seq, c0, UL_PROFILE)
+        tm.carry_kernel(EXACT, minima, seq, c0, UL_PROFILE)

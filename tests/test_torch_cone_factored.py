@@ -30,6 +30,7 @@ from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.ops import conemode as tc
 from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import raycast as tr
+from micro_quad_slam_tpu_torch.replay import mapping as tm
 
 torch.set_num_threads(2)
 
@@ -143,9 +144,10 @@ def reference_delta(inp: dict, hybrid: bool) -> torch.Tensor:
 
 def _bench_inputs(hybrid: bool) -> dict:
     """Every window of the committed bench flight, through the replay's
-    own schedule (ops/conex.py)."""
+    own schedule (replay/mapping.py::schedule, ops/conex.py's words)."""
     frames = port.frames_to_torch(testdata.bench_frames(1), "cpu")
-    sched, _, _ = cx.schedule(frames, port.UL_PROFILE, hybrid=hybrid)
+    sched, _, _ = tm.schedule(frames, port.UL_PROFILE,
+                              mode="hybrid" if hybrid else "cone")
     return cx._frame_inputs(sched[0], GEOM, hybrid)
 
 

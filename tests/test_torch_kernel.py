@@ -21,9 +21,11 @@ import torch
 
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
+from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.replay import mapping as tm
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams
 from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
 from micro_quad_slam_tpu_torch.ops.scanmatch import window_origin
@@ -65,7 +67,7 @@ def _random_grids(device, B=4):
 
 
 def test_kernel_bit_equals_plain_on_the_card(cuda):
-    sched, outs, _ = rx.schedule(_flights(cuda), UL_PROFILE)
+    sched, outs, _ = tm.schedule(_flights(cuda), UL_PROFILE)
     assert outs["kf_flags"].any()
     g0 = _random_grids(cuda)
     before = _launches("replay_exact")
@@ -78,7 +80,8 @@ def test_kernel_bit_equals_plain_on_the_card(cuda):
 
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_cone_kernel_bit_equals_plain_on_the_card(cuda, hybrid):
-    sched, outs, _ = cx.schedule(_flights(cuda), UL_PROFILE, hybrid=hybrid)
+    sched, outs, _ = tm.schedule(_flights(cuda), UL_PROFILE,
+                                 mode="hybrid" if hybrid else "cone")
     assert outs["kf_flags"].any()
     g0 = _random_grids(cuda)
     before = _launches("replay_cone")
@@ -166,20 +169,20 @@ def _assert_carry_same(a, b):
 
 
 def _carry_operands(frames):
-    return rx.carry_operands(frames, UL_PROFILE)[1:]
+    return tm.carry_operands(frames, UL_PROFILE)[1:]
 
 
-@pytest.mark.parametrize("library", ["replay_exact", "replay_cone"])
+@pytest.mark.parametrize("library", _build.ENTRIES["mqs_carry"].libraries)
 @pytest.mark.parametrize("case", ["random_flights", "batch_37", "T_61",
                                   "T_1", "nan_and_dropouts"])
 def test_carry_kernel_bit_equals_plain_on_the_card(cuda, case, library):
     frames = _carry_frames(case, cuda)
     minima, seq, c0 = _carry_operands(frames)
     before = _launches("carry")
-    got = rx.carry_kernel(library, minima, seq, c0, UL_PROFILE)
+    got = tm.carry_kernel(library, minima, seq, c0, UL_PROFILE)
     torch.cuda.synchronize()
     assert _launches("carry") == before + 1
-    want = rx.carry_plain(minima, seq, c0, UL_PROFILE)
+    want = tm.carry_plain(minima, seq, c0, UL_PROFILE)
     _assert_carry_same(got, want)
     so = want[0]
     if case == "random_flights":
@@ -193,19 +196,19 @@ def test_carry_kernel_bit_equals_plain_on_the_card(cuda, case, library):
 def test_carry_kernel_resumed_at_frame_30_equals_the_whole_run(cuda):
     frames = _carry_frames("random_flights", cuda)
     minima, seq, c0 = _carry_operands(frames)
-    lib = "replay_exact"
-    whole = rx.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
+    lib = tm.MODES["exact"].library
+    whole = tm.carry_kernel(lib, minima, seq, c0, UL_PROFILE)
     cut = lambda a, s: a[:, s].contiguous()                            # noqa: E731
-    head = rx.carry_kernel(lib, cut(minima, slice(0, 30)),
+    head = tm.carry_kernel(lib, cut(minima, slice(0, 30)),
                            {k: cut(v, slice(0, 30)) for k, v in seq.items()},
                            c0, UL_PROFILE)
-    tail = rx.carry_kernel(lib, cut(minima, slice(30, None)),
+    tail = tm.carry_kernel(lib, cut(minima, slice(30, None)),
                            {k: cut(v, slice(30, None)) for k, v in
                             seq.items()}, head[1], UL_PROFILE)
     joined = {k: torch.cat([head[0][k], tail[0][k]], dim=1)
               for k in whole[0]}
     _assert_carry_same((joined, tail[1]), whole)
-    _assert_carry_same(whole, rx.carry_plain(minima, seq, c0, UL_PROFILE))
+    _assert_carry_same(whole, tm.carry_plain(minima, seq, c0, UL_PROFILE))
 
 
 @pytest.mark.parametrize("kernel", ["residentx", "conex", "hybridx"])

@@ -154,7 +154,8 @@ def test_schedule_words(hybrid):
     int32, and (hybrid) the endpoints; replay_cone on the CPU is its
     plain version and launches nothing."""
     frames = port.frames_to_torch(_two_flights(), "cpu")
-    sched, outs, _ = cx.schedule(frames, port.UL_PROFILE, hybrid=hybrid)
+    sched, outs, _ = tm.schedule(frames, port.UL_PROFILE,
+                                 mode="hybrid" if hybrid else "cone")
     B, T = frames["x_m"].shape
     assert sched.dtype == torch.int32
     assert tuple(sched.shape) == (B, T, cx.words_of(hybrid))

@@ -17,8 +17,8 @@ from torch.profiler import ProfilerActivity, profile
 import micro_quad_slam_tpu_torch as port
 from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.__main__ import main as cli_main
-from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import residentx as rx
+from micro_quad_slam_tpu_torch.replay import mapping as tm
 from micro_quad_slam_tpu_torch.ops.raycast import DEFAULT_GEOM, make_rays
 from micro_quad_slam_tpu_torch.slam import pipeline as sp
 from micro_quad_slam_tpu_torch.utils import obs
@@ -27,8 +27,10 @@ from portbench import devtrace
 
 torch.set_num_threads(2)
 
-REPLAYS = {"residentx": lambda f: rx.replay_residentx(f, UL_PROFILE),
-           "hybridx": lambda f: cx.replay_conex(f, UL_PROFILE, hybrid=True)}
+# the whole replay's modes, under the names of their kernels
+MODES = {"residentx": "exact", "hybridx": "hybrid"}
+REPLAYS = {k: (lambda f, m=m: tm.replay_whole(f, UL_PROFILE, mode=m))
+           for k, m in MODES.items()}
 MAP_SPANS = ["replay", "replay.carry", "replay.rays", "replay.kernel"]
 # UL_PROFILE: 3 outer rounds, the loop stage 1 + loop_refine_early (1)
 # times in the first two and 1 + loop_refine (3) times in the last, each
@@ -188,8 +190,7 @@ def test_outputs_bit_identical_with_spans_on_and_off(map_runs, slam_run,
 @pytest.mark.parametrize("kernel", list(REPLAYS))
 def test_replay_counters_equal_the_schedule(map_runs, kernel):
     frames = _map_frames()
-    sched = (rx.schedule(frames, UL_PROFILE)[0] if kernel == "residentx"
-             else cx.schedule(frames, UL_PROFILE, hybrid=True)[0])
+    sched = tm.schedule(frames, UL_PROFILE, mode=MODES[kernel])[0]
     do = int(sched[..., rx.H_DO].sum())
     _, outs = map_runs[kernel]["off"]
     assert do == int((outs["kf_flags"] != 0).sum()) == 2
@@ -264,8 +265,9 @@ def test_trace_json_holds_the_spans_around_their_stages_ops(map_runs,
     for k in MAP_SPANS[1:]:
         assert iv["replay"][0] <= iv[k][0] <= iv[k][1] <= iv["replay"][1]
     frames = _map_frames()
-    beams, so, _, _ = rx.carry(frames, UL_PROFILE, library="replay_exact")
-    sched = rx.schedule(frames, UL_PROFILE)[0]
+    library = tm.MODES["exact"].library
+    beams, so, _, _ = tm.carry(frames, UL_PROFILE, library=library)
+    sched = tm.schedule(frames, UL_PROFILE)[0]
 
     def rays():
         r = make_rays(beams, frames["x_m"], frames["y_m"], frames["yaw_deg"],
@@ -274,8 +276,8 @@ def test_trace_json_holds_the_spans_around_their_stages_ops(map_runs,
         rx._pack(r, so["do"], so["sy"], so["sx"], DEFAULT_GEOM)
 
     grids = rx._fresh_grids(frames["x_m"], DEFAULT_GEOM)
-    alone = {"replay.carry": lambda: rx.carry(frames, UL_PROFILE,
-                                              library="replay_exact"),
+    alone = {"replay.carry": lambda: tm.carry(frames, UL_PROFILE,
+                                              library=library),
              "replay.rays": rays,
              "replay.kernel": lambda: rx.replay_exact(grids, sched,
                                                       UL_PROFILE)}
