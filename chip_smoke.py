@@ -11,8 +11,9 @@ re-raster) and the closed-loop swarm simulator (models/simulator.py), and
 builds and checks their hand-written CUDA kernels (csrc/replay_exact.cu
 with its snapshot and map-step entries, csrc/replay_cone.cu,
 csrc/match_lattice.cu, the replays' carry kernel, csrc/carry.cuh,
-which both replay libraries export, and the EKF replay kernel,
-csrc/ekf.cuh, SLAM pass 0).  Each phase prints one line and raises on
+which both replay libraries export, the EKF replay kernel,
+csrc/ekf.cuh, SLAM pass 0, and the swarm's flight state machine,
+csrc/behavior.cuh).  Each phase prints one line and raises on
 failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -26,7 +27,11 @@ failure; nothing falls back to the CPU.  Phases:
      carry), on the replay cases below, and resumed at frame 30 == the
      whole run; the EKF replay kernel (csrc/ekf.cuh) == ekf_replay_plain
      on the card, bit for bit, on the SLAM bench flights at B=128 and a
-     drifting copy that recenters, the schedule off and on; then
+     drifting copy that recenters, the schedule off and on; the flight
+     state machine's kernel (csrc/behavior.cuh) == behavior_step_plain
+     on the card, bit for bit (the new state and every output, tick for
+     tick), on the four fc_mock scenarios (ul_scenario_telemetry) tiled
+     to B=1000, one launch a tick; then
      exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames, short beams, and
@@ -79,10 +84,13 @@ failure; nothing falls back to the CPU.  Phases:
      and cmd_kind traces, grids and frontier scores equal, poses and EKF
      means within 1e-4), then bench.py's swarm line, B=1024 x T=1000 at
      1 kHz: control ticks/s, the checksum against the port's committed
-     CPU result (every quad's grid sum), the map-step launches, the
-     device's busy time and idle share in one profiled run, and the
-     map-step kernel's device time per launch against its plain version
-     and its bound on the run's own scan ticks;
+     CPU result (every quad's grid sum), the map-step launches (one a
+     scan tick) and the machine's (one a tick), the device's busy time
+     and idle share in one profiled run, the map-step kernel's device
+     time per launch against its plain version and its bound on the run's
+     own scan ticks, and the machine kernel's device time per launch
+     against the plain machine's time and its bytes and dispatch bounds
+     on the run's first tick;
   9. the live-topology path (run before the bench phases): the first
      SLAM bench flight as a T=256 dual-UART capture (scanlog_to_wirecap)
      through replay_wirecap with kernel="residentx" and "hybridx", each
@@ -213,11 +221,18 @@ KERNELS = {
         # of the EKF lax.scan (no Pallas kernel of its own)
         "source": "micro_quad_slam_tpu_torch/csrc/ekf.cuh",
         "replaces": "micro_quad_slam_tpu/replay/fusion.py:100"},
+    "behavior_step": {
+        # the swarm's flight state machine, exported by the exact kernel's
+        # library; the counterpart of the JAX machine's jnp.where step
+        # (no Pallas kernel of its own)
+        "source": "micro_quad_slam_tpu_torch/csrc/behavior.cuh",
+        "replaces": "micro_quad_slam_tpu/models/behavior.py:175"},
 }
 # the kernels whose wrappers count each launch in the counter
 # launches.<name> (utils/obs.py)
 LAUNCHED = ("replay_exact", "replay_cone", "match_lattice",
-            "replay_exact_snap", "map_step", "carry", "ekf_replay")
+            "replay_exact_snap", "map_step", "carry", "ekf_replay",
+            "behavior_step")
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -446,7 +461,7 @@ def _sass_counts(path) -> dict:
 
 # the kernels' occupancy queries: function -> (its C entry, the entry's
 # argument, or {label: argument} for a kernel launched at several shapes);
-# the carry and EKF entries take none.  Which libraries export each entry
+# the carry, EKF and machine entries take none.  Which libraries export each entry
 # is ops/_build.py::ENTRIES's.
 OCCUPANCY = {
     "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
@@ -454,6 +469,7 @@ OCCUPANCY = {
     "map_step_kernel": ("mqs_replay_exact_blocks_per_sm", 2),
     "carry_kernel": ("mqs_carry_blocks_per_sm", None),
     "ekf_replay_kernel": ("mqs_ekf_replay_blocks_per_sm", None),
+    "behavior_step_kernel": ("mqs_behavior_step_blocks_per_sm", None),
     "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
     "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
     "match_lattice_kernel": ("mqs_match_lattice_blocks_per_sm",
@@ -684,6 +700,70 @@ def phase_ekf_vs_plain(device) -> None:
         recenters=recenters)
 
 
+def phase_behavior_vs_plain(device, B: int = 1000) -> None:
+    """The flight state machine's kernel == behavior_step_plain on the
+    card, bit for bit (the new state and every output, tick for tick), on
+    the four fc_mock scenarios (ul_scenario_telemetry) tiled to B quads
+    (1,000: not a multiple of the kernel's block); one launch a tick."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    seq = testdata.ul_scenarios(B, device)
+    T = int(seq["t_ms"].shape[0])
+    before = launch_counts()["behavior_step"]
+    st_k = st_p = tb.behavior_init(B, device)
+    states = set()
+    for i in range(T):
+        tel = {k: v[i] for k, v in seq.items()}
+        st_k, out_k = tb.behavior_step_kernel(st_k, tel, UL_PROFILE)
+        st_p, out_p = tb.behavior_step_plain(st_p, tel, UL_PROFILE)
+        assert_same((st_k, out_k), (st_p, out_p), f"machine tick {i}")
+        if i % 100 == 0 or i == T - 1:
+            states |= set(out_p["state"].unique().tolist())
+    torch.cuda.synchronize()
+    launches = launch_counts()["behavior_step"] - before
+    check(launches == T, f"machine kernel launched {launches} times in "
+                         f"{T} ticks")
+    say("behavior_vs_plain", kernel="behavior_step", B=B, ticks=T,
+        bit_equal=True, launches=launches, states_sampled=sorted(states))
+
+
+def _dispatch_bound(function: str, steps: int = 1) -> tuple:
+    """A kernel of the replay_exact library at one instruction a clock:
+    `steps` dependent passes over its static SASS instructions (one warp's,
+    from the build facts) at the card's maximum SM clock.  Returns
+    (instructions, clock MHz, ms; None without cuobjdump's count)."""
+    sass = BUILD_FACTS.get("replay_exact", {}).get(function, {}).get(
+        "sass") or {}
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    n = sass.get("instructions")
+    return n, clock, (steps * n / (float(clock) * 1e6) * 1e3 if n else None)
+
+
+def _machine_bound(tel: dict, state, B: int) -> dict:
+    """The machine kernel's least time a tick at B quads: bytes (each
+    quad's telemetry fields, its state read and written, its outputs,
+    once) over the HBM rate, and dispatch (_dispatch_bound: every warp
+    runs on an SM of its own at B <= 132 x 32)."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    per_quad = sum(tel[k].element_size() * (4 if k == "tof_min" else 1)
+                   for k, _ in tb._TM_FIELDS)
+    state_bytes = sum(v.element_size() * (v.numel() // B) for v in state)
+    out_bytes = 4 * len(tb.WORD_OUTPUTS) + 16 + len(tb.FLAG_OUTPUTS)
+    nbytes = B * (per_quad + 2 * state_bytes + out_bytes)
+    instructions, clock, dispatch_ms = _dispatch_bound("behavior_step_kernel")
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_bytes_per_tick": nbytes, "bound_bytes_ms": bytes_ms,
+            "sass_instructions": instructions, "max_sm_clock_mhz": clock,
+            "bound_dispatch_ms": dispatch_ms,
+            "bound_ms": max(bytes_ms, dispatch_ms or 0.0),
+            "bound_by": ("dispatch" if (dispatch_ms or 0.0) > bytes_ms
+                         else "bytes")}
+
+
 def phase_ekf_replay_bench(device, smi: str, slam_launches: int,
                            B: int = 128, T: int = 256,
                            reps: int = 20) -> dict:
@@ -720,18 +800,11 @@ def phase_ekf_replay_bench(device, smi: str, slam_launches: int,
     per_flight = (8 + 64 + 2) * 4 + (8 + 64) * 4
     nbytes = B * T * per_frame + B * per_flight
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    sass = BUILD_FACTS.get("replay_exact", {}).get(
-        "ekf_replay_kernel", {}).get("sass") or {}
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0]
-    dispatch_ms = (T * sass["instructions"] / (float(clock) * 1e6) * 1e3
-                if sass.get("instructions") else None)
+    instructions, clock, dispatch_ms = _dispatch_bound("ekf_replay_kernel", T)
     say("kernel_alone", kernel="ekf_replay", B=B, T=T, ms=ms,
         device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by="bytes", bytes=nbytes, dispatch_bound_ms=dispatch_ms,
-        sass_instructions=sass.get("instructions"), max_sm_clock_mhz=clock,
+        sass_instructions=instructions, max_sm_clock_mhz=clock,
         profiled_launches=n_prof,
         ratio_to_bound=None if device_ms is None else device_ms / bound_ms,
         ratio_to_dispatch_bound=(None if device_ms is None or dispatch_ms is None
@@ -1932,14 +2005,72 @@ def _map_step_alone(ticks) -> dict:
             "bound_ops_per_tick": ops / len(ticks), "ticks": len(ticks)}
 
 
-def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
+def _machine_operands(world, st0) -> tuple:
+    """The machine's operands at the swarm's first tick as sim_step
+    assembles them (strided and broadcast telemetry views included):
+    (state, telemetry)."""
+    kept = []
+    real = sim.behavior_step
+
+    def keep(state, tel, cfg):
+        kept.append((state, tel))
+        return real(state, tel, cfg)
+
+    sim.behavior_step = keep
+    try:
+        sim.sim_step(st0, world, UL_PROFILE, **testdata.SWARM_RUN)
+    finally:
+        sim.behavior_step = real
+    return kept[0]
+
+
+def _machine_alone(world, st0, reps: int = 2000) -> dict:
+    """The machine kernel on the bench swarm's first tick: equal to the
+    plain machine; its device ms a launch (profiled, 200 launches), the
+    wrapper's host us (the least of `reps` calls, not synchronised) and
+    the plain machine's (the least of 20 calls) and ms by CUDA events;
+    and its bounds (_machine_bound)."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    state, tel = _machine_operands(world, st0)
+    assert_same(tb.behavior_step_kernel(state, tel, UL_PROFILE),
+                tb.behavior_step_plain(state, tel, UL_PROFILE),
+                "machine kernel on the swarm's first tick")
+
+    def host_us(fn, n):
+        best = math.inf
+        for i in range(n):
+            t0 = time.perf_counter()
+            fn(state, tel, UL_PROFILE)
+            best = min(best, time.perf_counter() - t0)
+            if i % 100 == 99:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return best * 1e6
+
+    host_kernel = host_us(tb.behavior_step_kernel, reps)
+    host_plain = host_us(tb.behavior_step_plain, 20)
+    plain_ms = _time_call(lambda: tb.behavior_step_plain(state, tel,
+                                                         UL_PROFILE), 5)
+    busy = _profiled_busy(lambda: [tb.behavior_step_kernel(
+        state, tel, UL_PROFILE) for _ in range(200)], ("behavior_step",))
+    key = next(k for k in busy["kernel_device_ms"] if "behavior_step" in k)
+    n = busy["kernel_launches"][key]
+    return {"ms": busy["kernel_device_ms"][key] / n, "ms_profiled_launches": n,
+            "host_us_kernel": host_kernel, "host_us_plain": host_plain,
+            "plain_ms": plain_ms, "max_abs_err": 0,
+            **_machine_bound(tel, state, int(st0.x.shape[0]))}
+
+
+def phase_swarm_bench(device, smi: str, reps: int = 2) -> list:
     """bench.py's swarm line (bench.py:45-81) on the card: B=1024 quads,
     T=1000 control ticks at 1 kHz, a scan every 100 ms, the airborne
     start; best of `reps` after a warm-up, timed by the port's bench
     entry (bench.bench_swarm).  The checksum and every quad's
     grid sum must equal the port's committed CPU run (swarm_bench_ref);
     the TPU record drew its noise from jax.random, another generator.
-    Returns the map-step kernel's entry of the kernels line."""
+    Returns the map-step and machine kernels' entries of the kernels
+    line."""
     world, st0, _ = testdata.swarm_bench(device=device)
     B, T = testdata.SWARM_B, testdata.SWARM_T
     torch.cuda.synchronize()
@@ -1953,6 +2084,9 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     check(n_launch["map_step"] == 10 * runs,
           f"the swarm launched map_step {n_launch['map_step']} times in "
           f"{runs} runs")
+    check(n_launch["behavior_step"] == T * runs,
+          f"the swarm launched the machine kernel "
+          f"{n_launch['behavior_step']} times in {runs} runs of {T} ticks")
     ref = testdata.reference("swarm_bench_ref")
     sums = testdata.grid_sums(fin.mapper.grid.cpu().numpy())["sums"]
     ck = testdata.int32_total(sums)
@@ -1964,8 +2098,10 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
     check(int((fin.mapper.grid != 0).sum()) > 100 * B, "the swarm mapped "
                                                         "nothing")
     dt = min(times)
-    busy = _profiled_busy(lambda: _run_swarm(world, st0), ("map_step",))
+    busy = _profiled_busy(lambda: _run_swarm(world, st0),
+                          ("map_step", "behavior_step"))
     key = next(k for k in busy["kernel_device_ms"] if "map_step" in k)
+    bkey = next(k for k in busy["kernel_device_ms"] if "behavior_step" in k)
     profiled = busy["kernel_launches"][key]
     ms = busy["kernel_device_ms"][key] / profiled
     states = np.bincount(diag["state"][-1].cpu().numpy(), minlength=10)
@@ -1990,13 +2126,23 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> dict:
           f"map_step vs plain max abs err {alone['max_abs_err']}")
     say("kernel_alone", kernel="map_step", ms=ms,
         ms_profiled_launches=profiled, **alone, card=smi)
-    return {"name": "map_step", "route": "cuda", **KERNELS["map_step"],
+    machine = _machine_alone(world, st0)
+    machine["ms_in_run"] = (busy["kernel_device_ms"][bkey]
+                            / busy["kernel_launches"][bkey])
+    say("kernel_alone", kernel="behavior_step", **machine, card=smi)
+    return [{"name": "map_step", "route": "cuda", **KERNELS["map_step"],
             "launches": n_launch["map_step"],
             "max_abs_err": alone["max_abs_err"], "ms": ms,
             "plain_ms": alone["plain_ms"], "bound_ms": alone["bound_ms"],
             "bound_by": alone["bound_by"], "library_ms": None,
             "also_serves": ["micro_quad_slam_tpu/ops/pallas_raycast.py:98",
-                            "micro_quad_slam_tpu/ops/pallas_raycast.py:212"]}
+                            "micro_quad_slam_tpu/ops/pallas_raycast.py:212"]},
+            {"name": "behavior_step", "route": "cuda",
+             **KERNELS["behavior_step"],
+             "launches": n_launch["behavior_step"], "max_abs_err": 0,
+             "ms": machine["ms_in_run"], "plain_ms": machine["plain_ms"],
+             "bound_ms": machine["bound_ms"],
+             "bound_by": machine["bound_by"], "library_ms": None}]
 
 
 # ------------------------------------------------------------------ wire
@@ -2556,6 +2702,7 @@ def main() -> int:
     phase_build()
     phase_carry_vs_plain(device)
     phase_ekf_vs_plain(device)
+    phase_behavior_vs_plain(device)
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
     phase_slam_kernels_vs_plain(device)
@@ -2580,7 +2727,7 @@ def main() -> int:
     phase_slam_bench(device, smi, "rt", 256)
     phase_ekf_bench(device, smi)
     kernels += [slam["match_lattice"], slam["replay_exact_snap"],
-                slam["ekf_replay"], phase_swarm_bench(device, smi)]
+                slam["ekf_replay"], *phase_swarm_bench(device, smi)]
     loaded = _jax_package_loaded()
     check(not loaded, f"the port imported jax or the JAX package: {loaded}")
     print(json.dumps({"kernels": kernels}), flush=True)

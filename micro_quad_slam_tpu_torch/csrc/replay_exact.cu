@@ -85,12 +85,14 @@
 // replay_cone.cu): the replay's sequential carry (the EMA, origins,
 // recenter schedule and gates) that makes this kernel's schedule, and
 // mqs_ekf_replay (ekf.cuh): SLAM pass 0's EKF odometry and recenter
-// schedule, and the fusion replay.
+// schedule, and the fusion replay; and mqs_behavior_step (behavior.cuh):
+// the closed-loop swarm's flight state machine, one launch a control tick.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "behavior.cuh"
 #include "carry.cuh"
 #include "ekf.cuh"
 #include "recenter.cuh"

@@ -17,15 +17,23 @@ field names (micro_quad_slam_tpu/golden/behavior.py); `sys_health` is an
 integer tensor (int32 or int64: torch's uint32 supports few operations).
 The float arithmetic is eager torch, one rounding per operation as in the
 golden model: no product and sum is contracted into an fma.
+
+On a CUDA device the tick is one launch of csrc/behavior.cuh's kernel
+(`behavior_step_kernel`: one thread per quad); anywhere else it is the
+plain torch path (`behavior_step_plain`), the kernel's twin in the card
+tests.
 """
 
 from __future__ import annotations
 
+import array
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from micro_quad_slam_tpu_torch.ops import _build
 from micro_quad_slam_tpu_torch.ops.raycast import div_f32
 from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
 
@@ -206,7 +214,17 @@ def behavior_step(state: BehaviorState, tm: dict,
                   cfg: PipelineConfig = UL_PROFILE):
     """One control tick for the whole batch.  tm: dict of [B] tensors with
     the golden Telemetry fields (tof_min [B, 4]).  Returns
-    (BehaviorState, outputs dict)."""
+    (BehaviorState, outputs dict).  On a CUDA device one launch of the
+    machine's kernel (behavior_step_kernel), anywhere else the plain torch
+    path (behavior_step_plain)."""
+    run = behavior_step_kernel if state.st.is_cuda else behavior_step_plain
+    return run(state, tm, cfg)
+
+
+def behavior_step_plain(state: BehaviorState, tm: dict,
+                        cfg: PipelineConfig = UL_PROFILE):
+    """behavior_step as [B]-wide torch ops, on any device: the kernel's
+    twin on the card."""
     bh = cfg.behavior
     W = torch.where
     S = dict(state._asdict())
@@ -693,6 +711,239 @@ def behavior_step(state: BehaviorState, tm: dict,
     O["alt_src"] = S["alt_src"]
     O["ceiling"] = S["ceiling"]
     return new_state, O
+
+
+# The telemetry fields the tick reads, in csrc/behavior.cuh's BehTm order,
+# with the dtype the kernel takes (sys_health also int64); tof_min [B, 4]
+# last.
+_TM_FIELDS = (
+    ("t_ms", _I32), ("have_fc", _BOOL), ("fc_armed", _BOOL),
+    ("hb_custom_mode", _I32), ("have_ext", _BOOL), ("landed_state", _I32),
+    ("have_sys", _BOOL), ("sys_last_ms", _I32), ("sys_health", _I32),
+    ("have_servo", _BOOL), ("servo_last_ms", _I32), ("motor_avg", _FLT),
+    ("batt_vpc", _FLT), ("batt_cells", _I32), ("batt_last_ms", _I32),
+    ("have_lpos", _BOOL), ("lpos_last_ms", _I32), ("lpos_x", _FLT),
+    ("lpos_y", _FLT), ("lpos_alt_filt", _FLT), ("have_att", _BOOL),
+    ("yaw_deg", _FLT), ("have_of", _BOOL), ("of_last_ms", _I32),
+    ("of_q", _I32), ("have_rf", _BOOL), ("rf_last_ms", _I32),
+    ("rf_m", _FLT), ("want_arm", _BOOL), ("have_takeoff_ack", _BOOL),
+    ("takeoff_ack_res", _I32), ("takeoff_ack_ms", _I32),
+    ("takeoff_accept_ms", _I32), ("map_inited", _BOOL),
+    ("frontier_f", _I32), ("frontier_r", _I32), ("frontier_l", _I32),
+    ("frontier_b", _I32), ("tof_min", _FLT))
+# The kernel's output fields, in csrc/behavior.cuh's order: the state's
+# int32 and float32 fields and WORD_OUTPUTS (BehWordRow), the state's bool
+# fields and FLAG_OUTPUTS (BehFlagRow), then tof_filt and cmd [B, 4]; each
+# written through its own pointer.
+_INT_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _I32)
+_FLT_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _FLT)
+_BOOL_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _BOOL)
+WORD_OUTPUTS = ("cmd_kind", "req_mode", "req_arm", "req_takeoff",
+                "map_origin_x", "map_origin_y")
+FLAG_OUTPUTS = ("rc_release", "clear_takeoff_ack", "map_init")
+_OUT_FIELDS = (_INT_FIELDS + _FLT_FIELDS + WORD_OUTPUTS + _BOOL_FIELDS
+               + FLAG_OUTPUTS + ("tof_filt", "cmd"))
+_OUT_DTYPES = {**{n: dt for n, dt, _ in _STATE_FIELDS},
+               **{n: _I32 for n in ("cmd_kind", "req_mode", "req_arm")},
+               **{n: _FLT for n in ("req_takeoff", "map_origin_x",
+                                    "map_origin_y", "tof_filt", "cmd")},
+               **{n: _BOOL for n in FLAG_OUTPUTS}}
+# The blocks the wrapper allocates a tick, by how long their fields live:
+# `st`, which sim_step's diagnostics keep every tick; the rest of what
+# sim_step(record=True) keeps of a tick; the rest, which the tick and the
+# next one read.  A kept tick so pins the bytes the plain path's separate
+# tensors did (45 a quad), and not the whole state's block (a block lives
+# as long as any view of it).  Each block holds its [B] 32-bit fields, its
+# [B, 4] fields, then (in a block of their own) its bool fields.
+_OUT_BLOCKS = (
+    ("st",),
+    ("kf", "cmd_kind", "req_mode", "req_arm", "alt_est", "req_takeoff",
+     "cmd", "rc_release"))
+_OUT_BLOCKS += (tuple(n for n in _OUT_FIELDS
+                      if not any(n in b for b in _OUT_BLOCKS)),)
+_QUADS = ("tof_filt", "cmd")
+# each block's (int32 [B], float32 [B], float32 [B, 4], bool [B]) fields
+_OUT_PLAN = tuple(
+    (tuple(n for n in b if _OUT_DTYPES[n] == _I32),
+     tuple(n for n in b if _OUT_DTYPES[n] == _FLT and n not in _QUADS),
+     tuple(n for n in b if n in _QUADS),
+     tuple(n for n in b if _OUT_DTYPES[n] == _BOOL)) for b in _OUT_BLOCKS)
+# the kernel's operands in its order: the telemetry, then the state
+_IN_NAMES = tuple(n for n, _ in _TM_FIELDS) + BehaviorState._fields
+_IN_DTYPES = ([dt for _, dt in _TM_FIELDS]
+              + [dt for _, dt, _ in _STATE_FIELDS] + [_FLT])
+_IN_SIZES = [dt.itemsize for dt in _IN_DTYPES]
+
+
+def _out_offsets() -> list:
+    """Where each output field lies, in the kernel's order: (its
+    allocation, its offset in bytes / B).  Block k's 32-bit words (ints,
+    floats, quads) are allocation 2k, its bools 2k + 1."""
+    at = {}
+    for k, (ints, floats, quads, flags) in enumerate(_OUT_PLAN):
+        at.update({n: (2 * k, 4 * j) for j, n in enumerate(ints + floats)})
+        at.update({n: (2 * k, 4 * (len(ints) + len(floats) + 4 * j))
+                   for j, n in enumerate(quads)})
+        at.update({n: (2 * k + 1, j) for j, n in enumerate(flags)})
+    return [at[n] for n in _OUT_FIELDS]
+
+
+_OUT_AT = _out_offsets()
+# the host arrays of pointers and strides the launch passes
+_IN_PTRS = ctypes.c_void_p * len(_IN_NAMES)
+_IN_STRIDES = ctypes.c_int * (len(_IN_NAMES) + 2)
+_OUT_PTRS = ctypes.c_void_p * len(_OUT_FIELDS)
+
+
+def kernel_config(cfg: PipelineConfig) -> tuple:
+    """The configuration the tick reads, as the kernel takes it: ({name:
+    float} in csrc/behavior.cuh's BehCfgFloat order, each rounded to
+    float32 as behavior_step_plain's `_f` rounds it, {name: int} in
+    BehCfgInt's order).  The plain path's two Python branches are the
+    flags land_actions_enabled and explore_gate."""
+    bh, bt, g = cfg.behavior, cfg.battery, cfg.gates
+    floats = {
+        "xy_min_alt_m": _f(g.xy_min_alt_m),
+        "ceil_m": _f(g.ceil_m),
+        "ceil_release_m": _f(_F32(g.ceil_m) - _F32(g.ceil_release_margin_m)),
+        "filt_alpha": _f(cfg.tof.filt_alpha),
+        "filt_keep": _f(_F32(1.0) - _F32(cfg.tof.filt_alpha)),
+        "arm_min_vpc": _f(bt.arm_min_vpc),
+        "emerg_vpc": _f(bt.emerg_vpc),
+        "land_vpc": _f(bt.land_vpc),
+        **{k: _f(getattr(bh, k)) for k in (
+            "yaw_rate_dps", "yaw_hold_gain", "ceiling_descend_mps",
+            "takeoff_target_m", "takeoff_mot_start_us", "ramp_exit_m",
+            "ramp_total_ms", "ramp_thr_min", "ramp_thr_max",
+            "thrust_clamp")},
+        "takeoff_at_alt_m": _f(_F32(bh.takeoff_target_m)
+                               - _F32(bh.takeoff_exit_margin_m)),
+        **{k: _f(getattr(bh, k)) for k in (
+            "assist_total_ms", "assist_thr_us_min", "assist_thr_us_max",
+            "assist_motor_delta_min", "assist_exit_alt_m", "front_stop_m",
+            "side_safe_m", "fwd_vel_mps", "frontier_tof_bias", "turn_gain",
+            "turn_exit_err_deg", "landing_descent_mps",
+            "landing_near_ground_m")},
+    }
+    ints = {
+        "of_min_quality": g.of_min_quality,
+        "xy_stable_hold_ms": g.xy_stable_hold_ms,
+        "low_hold_ms": bt.low_hold_ms,
+        "land_actions_enabled": int(bool(bt.land_actions_enabled)),
+        **{k: getattr(bh, k) for k in (
+            "post_turn_pause_ms", "takeoff_no_vel_ms", "takeoff_retry_ms",
+            "takeoff_start_check_ms", "ramp_send_ms", "ramp_abort_ms",
+            "takeoff_stall_ms", "assist_send_period_ms",
+            "assist_override_effect_ms", "assist_abort_ms",
+            "hover_explore_delay_ms")},
+        "explore_gate": int(bool(bh.explore_enabled
+                                 and not bh.hover_test_only)),
+        **{k: getattr(bh, k) for k in (
+            "frontier_eval_ms", "frontier_side_margin", "turn_timeout_ms")},
+    }
+    return floats, ints
+
+
+_CONFIG_ARRAYS: dict = {}     # id(cfg) -> (cfg, float array, int array)
+
+
+def _config_arrays(cfg: PipelineConfig) -> tuple:
+    """kernel_config(cfg) as the ctypes arrays the launch passes, made once
+    a configuration."""
+    hit = _CONFIG_ARRAYS.get(id(cfg))
+    if hit is None or hit[0] is not cfg:
+        floats, ints = kernel_config(cfg)
+        hit = (cfg, (ctypes.c_float * len(floats))(*floats.values()),
+               (ctypes.c_int * len(ints))(*ints.values()))
+        _CONFIG_ARRAYS[id(cfg)] = hit
+    return hit[1], hit[2]
+
+
+def _refuse(vals: list, shapes: list, dev) -> None:
+    """Raise ValueError on the first operand the kernel does not take: a
+    tensor on another device, of another dtype (sys_health may also be
+    int64) or shape."""
+    for name, v, dtype, shape in zip(_IN_NAMES, vals, _IN_DTYPES, shapes):
+        if not isinstance(v, torch.Tensor) or v.device != dev:
+            raise ValueError(f"behavior kernel: {name} must be a tensor on "
+                             f"{dev}")
+        if v.dtype != dtype and not (name == "sys_health"
+                                     and v.dtype == torch.int64):
+            raise ValueError(f"behavior kernel: {name} must be {dtype}, "
+                             f"not {v.dtype}")
+        if v.shape != shape:
+            raise ValueError(f"behavior kernel: {name} must have shape "
+                             f"{tuple(shape)}, not {tuple(v.shape)}")
+
+
+def behavior_step_kernel(state: BehaviorState, tm: dict,
+                         cfg: PipelineConfig = UL_PROFILE):
+    """behavior_step_plain's (state, outputs) from one launch of the
+    machine's kernel (csrc/behavior.cuh; ops/_build.py::ENTRIES names its
+    library), on CUDA tensors; bit-equal to behavior_step_plain on the
+    card.  The telemetry fields are read as they are, strided or
+    broadcast (stride 0), each [B] (tof_min [B, 4]) with _TM_FIELDS'
+    dtype; the new state and the outputs are views of a few blocks
+    (_OUT_BLOCKS).  Raises ValueError on operands it does not take and
+    RuntimeError on a failed launch.  Each launch counts in
+    launches.behavior_step (utils/obs.py)."""
+    t = tm["t_ms"]
+    dev = t.device
+    if t.dim() != 1 or dev.type != "cuda":
+        raise ValueError(f"behavior kernel: t_ms must be [B] on a CUDA "
+                         f"device, not {tuple(t.shape)} on {dev}")
+    B = t.shape[0]
+    row, quad = torch.Size((B,)), torch.Size((B, 4))
+    vals = [tm[name] for name, _ in _TM_FIELDS]
+    vals += state
+    shapes = [row] * (len(_TM_FIELDS) - 1) + [quad] + [row] * (
+        len(state) - 1) + [quad]
+    # the common case in one pass a property; _refuse says what is wrong
+    sizes = _IN_SIZES
+    if ([v.dtype for v in vals] != _IN_DTYPES
+            or [v.get_device() for v in vals] != [dev.index] * len(vals)
+            or [v.shape for v in vals] != shapes):
+        _refuse(vals, shapes, dev)
+        sizes = [v.element_size() for v in vals]
+    ptrs = array.array("Q", [v.data_ptr() for v in vals])
+    strides = array.array("i", [v.stride()[0] * n
+                                for v, n in zip(vals, sizes)])
+    strides.append(tm["tof_min"].stride(1) * 4)
+    strides.append(state.tof_filt.stride(1) * 4)
+    view, base = {}, []
+    for ints, floats, quads, flags in _OUT_PLAN:
+        ni, nf = len(ints), len(floats)
+        w = torch.empty((ni + nf + 4 * len(quads)) * B, dtype=_I32,
+                        device=dev)
+        f = w.view(_FLT)
+        view.update(zip(ints, w[:ni * B].view(ni, B).unbind(0)))
+        view.update(zip(floats, f[ni * B:(ni + nf) * B].view(nf, B)
+                        .unbind(0)))
+        for j, name in enumerate(quads):
+            o = (ni + nf + 4 * j) * B
+            view[name] = f[o:o + 4 * B].view(B, 4)
+        base.append(w.data_ptr())
+        if flags:
+            g = torch.empty((len(flags), B), dtype=_BOOL, device=dev)
+            view.update(zip(flags, g.unbind(0)))
+            base.append(g.data_ptr())
+        else:
+            base.append(0)
+    if B:
+        fcfg, icfg = _config_arrays(cfg)
+        outs = array.array("Q", [base[k] + c * B for k, c in _OUT_AT])
+        _build.launch(None, "mqs_behavior_step", dev,
+                      _IN_PTRS.from_buffer(ptrs),
+                      _IN_STRIDES.from_buffer(strides),
+                      _OUT_PTRS.from_buffer(outs), B, fcfg, icfg)
+    S = {name: view[name] for name in BehaviorState._fields}
+    O = {name: view[name] for name in (
+        "cmd_kind", "cmd", "req_mode", "req_arm", "req_takeoff",
+        "rc_release", "clear_takeoff_ack", "map_init", "map_origin_x",
+        "map_origin_y")}
+    O.update(state=view["st"], kf_flags=view["kf"], alt_est=view["alt_est"],
+             alt_src=view["alt_src"], ceiling=view["ceiling"])
+    return BehaviorState(**S), O
 
 
 def drain_kf(state: BehaviorState):

@@ -25,7 +25,9 @@ The time is a host integer, so whether a tick scans is decided on the
 host: the scan branch and the frontier refresh run only on scan ticks, by
 a Python `if`, where the JAX module selects with lax.cond.  A scan tick's
 map update is ops/residentx.map_step: the map-step kernel on a CUDA
-device, its plain version on the CPU.
+device, its plain version on the CPU.  Every tick's behaviour step is
+models/behavior.py::behavior_step: one launch of the machine's kernel on
+a CUDA device, its plain torch path on the CPU.
 
 Randomness.  The JAX module draws from jax.random; this one from an
 explicit CPU torch.Generator that the state carries in place of the key

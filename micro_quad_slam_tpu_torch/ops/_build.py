@@ -39,8 +39,9 @@ BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 # torch version's do (a 1-ulp difference flips cells on a fan boundary,
 # ops/conemode.py); it also spells each rounding out with __fmul_rn /
 # __fadd_rn.  The carry kernel (carry.cuh, in both replay libraries) does
-# the same for the ToF filter and the origins.  replay_exact.cu's own
-# kernels do integer work only.
+# the same for the ToF filter and the origins, the EKF replay (ekf.cuh)
+# and the flight state machine (behavior.cuh) for all of their float work.
+# replay_exact.cu's own kernels do integer work only.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
@@ -59,13 +60,15 @@ class Entry(NamedTuple):
 
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-_FLOATS, _BLOCKS = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_FLOATS, _INTS = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)
+_PTRS, _BLOCKS = ctypes.POINTER(ctypes.c_void_p), _INTS
 # The launches take the stream last; each returns a CUDA error code (-1:
 # the entry refuses its operands).  The *_blocks_per_sm queries write the
 # occupancy calculator's blocks per SM through their last argument.  The
 # carry (csrc/carry.cuh) is compiled into both replay libraries, so that a
-# mapping replay builds one library; the EKF replay (csrc/ekf.cuh) into
-# replay_exact.
+# mapping replay builds one library; the EKF replay (csrc/ekf.cuh) and the
+# flight state machine (csrc/behavior.cuh) into replay_exact.  Host arrays
+# (_FLOATS, _INTS, _PTRS) are copied into the kernel's parameters.
 ENTRIES = {
     "mqs_carry": Entry(
         ("replay_exact", "replay_cone"),
@@ -81,6 +84,8 @@ ENTRIES = {
         ("replay_exact",),
         (_P,) * 19 + (_I,) * 3 + (_FLOATS,)
         + (_F,) * 5 + (_I,) + (_F,) * 4 + (_D, _I, _P)),
+    "mqs_behavior_step": Entry(
+        ("replay_exact",), (_PTRS, _INTS, _PTRS, _I, _FLOATS, _INTS, _P)),
     "mqs_replay_cone": Entry(
         ("replay_cone",), (_P,) * 3 + (_I,) * 15 + (_F,) * 5 + (_P,)),
     "mqs_match_lattice": Entry(
@@ -89,6 +94,7 @@ ENTRIES = {
         ("replay_exact", "replay_cone"), (_BLOCKS,)),
     "mqs_replay_exact_blocks_per_sm": Entry(("replay_exact",), (_I, _BLOCKS)),
     "mqs_ekf_replay_blocks_per_sm": Entry(("replay_exact",), (_BLOCKS,)),
+    "mqs_behavior_step_blocks_per_sm": Entry(("replay_exact",), (_BLOCKS,)),
     "mqs_replay_cone_blocks_per_sm": Entry(("replay_cone",), (_I, _BLOCKS)),
     "mqs_match_lattice_blocks_per_sm": Entry(
         ("match_lattice",), (_I, _BLOCKS)),

@@ -71,6 +71,12 @@ Beside the flights, reference results of the JAX package's replay
                            schedules (fc_mock.random_scenario, seeds
                            10000-10031, 700 ticks): each Telemetry field
                            [700, 32] (telems_to_arrays' dtypes)
+    ul_scenario_telemetry  the telemetry of the golden UL machine's runs
+                           on tests/test_torch_behavior.py's four fc_mock
+                           scenarios (seeds 11, 14, 15, 21: takeoff, ramp,
+                           liftoff assist, hover, explore, turning,
+                           landing, disarming), 1,100 ticks: each
+                           Telemetry field [1100, 4]
     swarm_small_jax        its closed-loop simulator on bench.py's swarm
                            configuration (bench.py:45-81) cut to B=8:
                            the start state sim_init(8, PRNGKey(0),
@@ -109,7 +115,8 @@ NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
          "golden_short_beams", "bench_flight", "slam_bench_flights")
 REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
               "slam_stages", "swarm_small_jax", "swarm_bench_ref",
-              "wire_ref", "slam_fb_ref", "cl_fuzz_telemetry")
+              "wire_ref", "slam_fb_ref", "cl_fuzz_telemetry",
+              "ul_scenario_telemetry")
 
 # bench.py's swarm workload (bench.py:45-81): world, start and run
 SWARM_WORLD = {"room": (-3.5, -3.5, 3.5, 3.5),
@@ -397,17 +404,30 @@ def slam_kernel_operands(frames: dict, cfg) -> tuple:
                       "loop": lattice(args, s.loop_n_xy, s.loop_n_yaw)}
 
 
-def cl_fuzz(B: int, device=None) -> dict:
-    """cl_fuzz_telemetry's schedules tiled to B quads, as [T, B] tensors
-    on `device` (the CUDA device unless told otherwise) for the CL
-    machine's step: the uint32 health bits widen to int64."""
+def _tiled(name: str, B: int, device) -> dict:
+    """A telemetry reference's [T, n] schedules tiled to B quads, as [T, B]
+    tensors on `device` (the CUDA device unless told otherwise): the
+    uint32 health bits widen to int64."""
     import torch
 
     from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
-    ref = reference("cl_fuzz_telemetry")
-    reps = -(-B // CL_FUZZ_SEEDS)
+    ref = reference(name)
+    n = ref["t_ms"].shape[1]
+    reps = -(-B // n)
     return {k: torch.from_numpy(np.concatenate(
         [v.astype(np.int64) if v.dtype == np.uint32 else v] * reps,
         axis=1)[:, :B]).to(device) for k, v in ref.items()}
+
+
+def cl_fuzz(B: int, device=None) -> dict:
+    """cl_fuzz_telemetry's schedules tiled to B quads, as [T, B] tensors
+    on `device` for the CL machine's step (_tiled)."""
+    return _tiled("cl_fuzz_telemetry", B, device)
+
+
+def ul_scenarios(B: int, device=None) -> dict:
+    """ul_scenario_telemetry's four scenarios tiled to B quads, as [T, B]
+    tensors on `device` for the UL machine's step (_tiled)."""
+    return _tiled("ul_scenario_telemetry", B, device)

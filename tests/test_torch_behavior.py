@@ -7,6 +7,8 @@ Integer and boolean outputs are held equal; `cmd` within 2e-5, the JAX
 test's tolerance against the golden model (float32 ramp and yaw-rate
 arithmetic)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,8 @@ from fc_mock import Scenario, run_scenario
 from micro_quad_slam_tpu.models import behavior as jb
 from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
 from micro_quad_slam_tpu_torch.models import behavior as tb
-from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
+from micro_quad_slam_tpu_torch.utils import obs
+from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
 from test_behavior import telems_to_arrays
 
 torch.set_num_threads(2)
@@ -126,3 +129,76 @@ def test_drain_kf_clears_and_returns_flags():
         kf=torch.tensor([5, 0], dtype=torch.int32))
     st2, flags = tb.drain_kf(st)
     assert flags.tolist() == [5, 0] and st2.kf.tolist() == [0, 0]
+
+
+def _flags_off(cfg):
+    return dataclasses.replace(
+        cfg, behavior=dataclasses.replace(cfg.behavior,
+                                          explore_enabled=False),
+        battery=dataclasses.replace(cfg.battery, land_actions_enabled=False))
+
+
+def _hover_only(cfg):
+    return dataclasses.replace(cfg, behavior=dataclasses.replace(
+        cfg.behavior, hover_test_only=True))
+
+
+@pytest.mark.parametrize("make", [lambda: UL_PROFILE, lambda: CL_PROFILE,
+                                  lambda: _flags_off(UL_PROFILE),
+                                  lambda: _hover_only(UL_PROFILE)],
+                         ids=["ul", "cl", "flags_off", "hover_test_only"])
+def test_kernel_config_packs_each_value_as_plain_rounds_it(make):
+    """The machine kernel's configuration (behavior.kernel_config): each
+    float the `_f` of its field, the two derived thresholds rounded as the
+    plain path subtracts them in float32, the ints as they are, and the
+    plain path's two Python branches as flags."""
+    cfg = make()
+    bh, bt, g = cfg.behavior, cfg.battery, cfg.gates
+    floats, ints = tb.kernel_config(cfg)
+    derived = {
+        "ceil_release_m": tb._f(np.float32(g.ceil_m)
+                                - np.float32(g.ceil_release_margin_m)),
+        "filt_alpha": tb._f(cfg.tof.filt_alpha),
+        "filt_keep": tb._f(np.float32(1.0) - np.float32(cfg.tof.filt_alpha)),
+        "takeoff_at_alt_m": tb._f(np.float32(bh.takeoff_target_m)
+                                  - np.float32(bh.takeoff_exit_margin_m))}
+    for name, v in floats.items():
+        if name in derived:
+            want = derived[name]
+        else:
+            group = next(x for x in (bh, bt, g) if hasattr(x, name))
+            want = tb._f(getattr(group, name))
+        assert v == want and np.float32(v) == v, name
+    flags = {"land_actions_enabled": int(bt.land_actions_enabled),
+             "explore_gate": int(bh.explore_enabled
+                                 and not bh.hover_test_only)}
+    for name, v in ints.items():
+        group = next((x for x in (bh, bt, g) if hasattr(x, name)), None)
+        want = flags[name] if name in flags else getattr(group, name)
+        assert v == want and isinstance(v, int), name
+    assert len(floats) == 32 and len(ints) == 19
+
+
+def test_behavior_step_on_cpu_tensors_runs_the_plain_path(runs):
+    """On CPU tensors behavior_step is behavior_step_plain: no launch of
+    the machine kernel, the same outputs; the kernel's wrapper refuses CPU
+    operands before it launches anything."""
+    golden, _, _ = runs
+    seq = _seq(golden[15][0])
+    tel = {k: v[400] for k, v in seq.items()}
+    state = tb.behavior_init(1, "cpu")
+    before = obs.counters().get("launches.behavior_step", 0)
+    got = tb.behavior_step(state, tel, UL_PROFILE)
+    want = tb.behavior_step_plain(state, tel, UL_PROFILE)
+    assert obs.counters().get("launches.behavior_step", 0) == before
+
+    def same(a, b):
+        if a.is_floating_point():
+            a, b = a.nan_to_num(7.0), b.nan_to_num(7.0)
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    assert all(same(a, b) for a, b in zip(got[0], want[0]))
+    assert list(got[1]) == list(want[1])
+    assert all(same(got[1][k], want[1][k]) for k in want[1])
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.behavior_step_kernel(state, tel, UL_PROFILE)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
 map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu, the carry
 kernel of csrc/carry.cuh in both replay libraries, the EKF replay kernel
-of csrc/ekf.cuh) against
+of csrc/ekf.cuh, the flight state machine of csrc/behavior.cuh) against
 their plain torch versions, on the card, the simulator's card run
 against the committed JAX small swarm, and the SLAM's card run against
 its CPU run.  Every test here needs a
@@ -576,6 +576,213 @@ def test_swarm_small_equals_jax_on_the_card(cuda):
                      .abs().max()) <= 1e-4, k
     assert float((fin.ekf.mean.cpu() - torch.from_numpy(ref["ekf_mean"]))
                  .abs().max()) <= 1e-4
+
+
+# ------------------------------------------------- the flight state machine
+
+def _random_telemetry(B: int, T: int, seed: int) -> dict:
+    """T ticks of seeded random telemetry for B quads, [T, B] numpy arrays
+    (tof_min [T, B, 4]) at 20 ms a tick: stale and missing streams,
+    rejected and accepted takeoff acks, NaN rf_m, yaw_deg, motor_avg,
+    batt_vpc, lpos_alt_filt and tof_min entries, and batteries held below
+    the land and emergency thresholds long enough to trip the failsafes
+    (a quad's level is drawn once, 3.2 to 4.2 V a cell)."""
+    rng = np.random.default_rng(seed)
+    t = (rng.integers(0, 5000, B)[None] + 20 * np.arange(T)[:, None]
+         ).astype(np.int32)
+    shape = (T, B)
+
+    def p(q):
+        return rng.random(shape) < q
+
+    def ago(hi):
+        return (t - rng.integers(0, hi, shape)).astype(np.int32)
+
+    def sticky(q, flip):
+        return (rng.random(B) < q) ^ (np.cumsum(p(flip), axis=0) % 2 == 1)
+
+    def nan(v, q):
+        return np.where(p(q), np.nan, v).astype(np.float32)
+
+    bits = np.array([0x01, 0x2000, 0x4000, 0x400000])
+    health = (rng.random(shape + (4,)) < 0.9) @ bits
+    level = rng.uniform(3.2, 4.2, B)
+    return {
+        "t_ms": t, "have_fc": p(0.97), "fc_armed": sticky(0.6, 0.02),
+        "hb_custom_mode": rng.choice([0, 4, 9], shape, p=[0.2, 0.7, 0.1]
+                                     ).astype(np.int32),
+        "have_ext": p(0.8),
+        "landed_state": rng.choice([0, 1, 2], shape, p=[0.1, 0.3, 0.6]
+                                   ).astype(np.int32),
+        "have_sys": p(0.9), "sys_last_ms": ago(1500),
+        "sys_health": health.astype(np.int32),
+        "have_servo": p(0.9), "servo_last_ms": ago(300),
+        "motor_avg": nan(rng.uniform(1000, 1700, shape), 0.05),
+        "batt_vpc": nan(level + rng.normal(0, 0.02, shape), 0.05),
+        "batt_cells": rng.choice([0, 2, 3], shape, p=[0.05, 0.9, 0.05]
+                                 ).astype(np.int32),
+        "batt_last_ms": np.where(p(0.05), 0, ago(2500)).astype(np.int32),
+        "have_lpos": p(0.9), "lpos_last_ms": ago(500),
+        "lpos_x": rng.uniform(-3, 3, shape).astype(np.float32),
+        "lpos_y": rng.uniform(-3, 3, shape).astype(np.float32),
+        "lpos_alt_filt": nan(rng.uniform(-0.1, 1.2, shape), 0.05),
+        "have_att": p(0.95),
+        "yaw_deg": nan(rng.uniform(-180, 180, shape), 0.05),
+        "have_of": p(0.9), "of_last_ms": ago(600),
+        "of_q": rng.integers(0, 256, shape).astype(np.int32),
+        "have_rf": p(0.8), "rf_last_ms": ago(600),
+        "rf_m": nan(rng.uniform(-0.1, 1.5, shape), 0.1),
+        "want_arm": sticky(0.8, 0.01), "have_takeoff_ack": p(0.5),
+        "takeoff_ack_res": rng.choice([0, 1, 2], shape, p=[0.7, 0.15, 0.15]
+                                      ).astype(np.int32),
+        "takeoff_ack_ms": np.where(p(0.1), 0, ago(4000)).astype(np.int32),
+        "takeoff_accept_ms": np.where(p(0.5), 0, ago(4000)).astype(np.int32),
+        "tof_min": np.where(rng.random(shape + (4,)) < 0.1, np.nan,
+                            rng.uniform(0.1, 3.0, shape + (4,))
+                            ).astype(np.float32),
+        "map_inited": p(0.7),
+        **{f"frontier_{d}": rng.integers(0, 300, shape).astype(np.int32)
+           for d in "frlb"},
+    }
+
+
+def _random_state(B: int, t0: np.ndarray, seed: int, device):
+    """A seeded random machine state for B quads at the clock t0 [B]: every
+    state, random flags, timers up to 5 s old or 0, NaN floats."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    rng = np.random.default_rng(seed)
+    d = {}
+    for name, dt, _ in tb._STATE_FIELDS:
+        if dt == torch.bool:
+            d[name] = rng.random(B) < 0.5
+        elif dt == torch.float32:
+            d[name] = np.where(rng.random(B) < 0.1, np.nan,
+                               rng.uniform(-180, 180, B)).astype(np.float32)
+        else:
+            d[name] = np.where(rng.random(B) < 0.3, 0, t0 - rng.integers(
+                0, 5000, B)).astype(np.int32)
+    d["st"] = rng.integers(0, 10, B).astype(np.int32)
+    d["turn_dir"] = rng.integers(0, 4, B).astype(np.int32)
+    d["forced_dir"] = rng.integers(0, 4, B).astype(np.int32)
+    d["alt_src"] = rng.integers(0, 4, B).astype(np.int32)
+    d["kf"] = rng.integers(0, 256, B).astype(np.int32)
+    d["alt_est"] = np.where(rng.random(B) < 0.1, np.nan, rng.uniform(
+        -0.1, 1.2, B)).astype(np.float32)
+    d["tof_filt"] = np.where(rng.random((B, 4)) < 0.1, np.nan, rng.uniform(
+        0.1, 3.0, (B, 4))).astype(np.float32)
+    return tb.behavior_state_from_numpy(d, device)
+
+
+def _machine_runs(state, seq: dict, cfg):
+    """The machine over [T, B] telemetry tensors from `state`, through the
+    kernel and through the plain path: per path, every tick's (state,
+    outputs)."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    runs = []
+    for step in (tb.behavior_step_kernel, tb.behavior_step_plain):
+        st, ticks = state, []
+        for i in range(seq["t_ms"].shape[0]):
+            st, out = step(st, {k: v[i] for k, v in seq.items()}, cfg)
+            ticks.append((st, out))
+        runs.append(ticks)
+    return runs
+
+
+def _assert_machine_same(kernel_ticks, plain_ticks):
+    for i, ((ks, ko), (ps, po)) in enumerate(zip(kernel_ticks,
+                                                 plain_ticks)):
+        assert list(ko) == list(po)
+        for name, x, y in ([(f"state.{k}", getattr(ks, k), getattr(ps, k))
+                            for k in ks._fields]
+                           + [(k, ko[k], po[k]) for k in ko]):
+            assert x.dtype == y.dtype and x.shape == y.shape, (i, name)
+            assert torch.equal(_bits(x), _bits(y)), (i, name)
+    assert len(kernel_ticks) == len(plain_ticks)
+
+
+def test_machine_kernel_on_the_scenarios_bit_equals_plain_on_the_card(cuda):
+    """test_torch_behavior.py's four fc_mock scenarios (1,100 ticks: idle,
+    arming, takeoff, ramp, liftoff assist, hover, explore, turning,
+    disarming), tiled to B = 1,000 quads (not a multiple of the kernel's
+    block): the kernel's new state and every output equal the plain
+    path's, tick for tick, one launch a tick.  (Landing is the random
+    cases'.)"""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    seq = testdata.ul_scenarios(1000, cuda)
+    T = seq["t_ms"].shape[0]
+    before = _launches("behavior_step")
+    kernel, plain = _machine_runs(tb.behavior_init(1000, cuda), seq,
+                                  UL_PROFILE)
+    torch.cuda.synchronize()
+    assert _launches("behavior_step") == before + T
+    _assert_machine_same(kernel, plain)
+    states = torch.stack([o["state"] for _, o in kernel]).unique().tolist()
+    assert set(states) >= {1, 2, 3, 4, 5, 6, 7, 9}, states
+
+
+# the random cases: each one's changes to UL_PROFILE's groups
+MACHINE_CASES = {
+    "random": {}, "int64_health": {}, "one_quad": {},
+    "no_explore": {"behavior": {"explore_enabled": False}},
+    "hover_test_only": {"behavior": {"hover_test_only": True}},
+    "no_land_actions": {"battery": {"land_actions_enabled": False}}}
+
+
+@pytest.mark.parametrize("case", list(MACHINE_CASES))
+def test_machine_kernel_on_random_telemetry_bit_equals_plain_on_the_card(
+        cuda, case):
+    """Random states under random telemetry (NaN rf_m, yaw_deg, motor_avg,
+    batt_vpc and tof_min entries; batteries that trip the low and
+    emergency failsafes), 300 ticks: the kernel equals the plain path tick
+    for tick; with int64 sys_health, at B = 1, and with explore_enabled
+    off, hover_test_only on, land_actions_enabled off."""
+    import dataclasses
+
+    cfg = dataclasses.replace(UL_PROFILE, **{
+        group: dataclasses.replace(getattr(UL_PROFILE, group), **changes)
+        for group, changes in MACHINE_CASES[case].items()})
+    B = 1 if case == "one_quad" else 777
+    seed = 1800 + list(MACHINE_CASES).index(case)
+    tel = _random_telemetry(B, 300, seed)
+    if case == "int64_health":
+        tel["sys_health"] = tel["sys_health"].astype(np.int64)
+    seq = {k: torch.from_numpy(v).to(cuda) for k, v in tel.items()}
+    state = _random_state(B, tel["t_ms"][0], seed, cuda)
+    kernel, plain = _machine_runs(state, seq, cfg)
+    _assert_machine_same(kernel, plain)
+    if B > 1:     # some quads' batteries tripped (KF_BATT_LAND, _EMERG)
+        gained = plain[-1][1]["kf_flags"] & ~state.kf
+        assert bool(((gained & 64) != 0).any() and ((gained & 128) != 0)
+                    .any())
+
+
+def test_one_machine_launch_per_sim_step_on_the_card(cuda, monkeypatch):
+    """200 ticks of the bench swarm's start: one behavior_step launch a
+    sim_step, and every diagnostic and the final state bit-equal to the
+    same run through the plain machine."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+    from micro_quad_slam_tpu_torch.models import simulator as sim
+
+    world, st0, _ = testdata.swarm_bench(device=cuda)
+    before = _launches("behavior_step")
+    fin, diag = sim.sim_run(st0, world, 200, UL_PROFILE, record=True,
+                            **testdata.SWARM_RUN)
+    torch.cuda.synchronize()
+    assert _launches("behavior_step") == before + 200
+    monkeypatch.setattr(sim, "behavior_step", tb.behavior_step_plain)
+    fin_p, diag_p = sim.sim_run(st0, world, 200, UL_PROFILE, record=True,
+                                **testdata.SWARM_RUN)
+    assert _launches("behavior_step") == before + 200
+    assert sorted(diag) == sorted(diag_p)
+    for k in diag:
+        assert torch.equal(_bits(diag[k]), _bits(diag_p[k])), k
+    for k in fin.beh._fields:
+        assert torch.equal(_bits(getattr(fin.beh, k)),
+                           _bits(getattr(fin_p.beh, k))), k
+    assert torch.equal(fin.mapper.grid, fin_p.mapper.grid)
 
 
 @pytest.mark.parametrize("form", [{}, {"match_feedback": True},

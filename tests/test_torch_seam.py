@@ -22,11 +22,13 @@ PKG = pathlib.Path(_build.__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 # a C parameter's type -> its ctypes kind
 C_KINDS = {"void*": "pointer", "int": "int", "float": "float",
-           "double": "double", "float*": "float*", "int*": "int*"}
+           "double": "double", "float*": "float*", "int*": "int*",
+           "void**": "void**"}
 CTYPES_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
                 ctypes.c_float: "float", ctypes.c_double: "double",
                 ctypes.POINTER(ctypes.c_float): "float*",
-                ctypes.POINTER(ctypes.c_int): "int*"}
+                ctypes.POINTER(ctypes.c_int): "int*",
+                ctypes.POINTER(ctypes.c_void_p): "void**"}
 PROTOTYPE = re.compile(r'extern\s+"C"\s+(\w+)\s+(mqs_\w+)\s*\(([^)]*)\)')
 INCLUDE = re.compile(r'#include\s+"([^"]+)"')
 
@@ -75,6 +77,59 @@ def test_entry_matches_its_c_prototype(entry):
         assert source in _compiled(f"{lib}.cu"), (
             f"{entry} is defined in {source}, which {lib}.cu does not "
             f"compile")
+
+
+def _enum(header: str, name: str, prefix: str) -> list:
+    """The enumerators of `enum name` in csrc/<header>, each less its
+    prefix (the count that ends the enum left out)."""
+    m = re.search(r"enum\s+" + name + r"\s*\{([^}]*)\}",
+                  (CSRC / header).read_text())
+    assert m, f"no enum {name} in {header}"
+    names = [w.strip() for w in m.group(1).split(",") if w.strip()]
+    assert not names[-1].startswith(prefix)
+    return [w[len(prefix):] for w in names[:-1]]
+
+
+def _machine_tables() -> dict:
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    floats, ints = tb.kernel_config(tb.UL_PROFILE)
+    return {
+        ("BehTm", "TM_"): [n for n, _ in tb._TM_FIELDS],
+        ("BehSt", "BS_"): list(tb.BehaviorState._fields),
+        ("BehWordRow", "WR_"): [*tb._INT_FIELDS, *tb._FLT_FIELDS,
+                                *tb.WORD_OUTPUTS],
+        ("BehFlagRow", "FR_"): [*tb._BOOL_FIELDS, *tb.FLAG_OUTPUTS],
+        ("BehCfgFloat", "CF_"): list(floats),
+        ("BehCfgInt", "CI_"): list(ints)}
+
+
+@pytest.mark.parametrize("enum", ["BehTm", "BehSt", "BehWordRow",
+                                  "BehFlagRow", "BehCfgFloat", "BehCfgInt"])
+def test_machine_kernel_layout_matches_the_python_tables(enum):
+    """csrc/behavior.cuh's operand, output-row and configuration orders
+    are models/behavior.py's: the wrapper passes pointers, reads rows and
+    packs the configuration by them."""
+    (key, want), = [(k, v) for k, v in _machine_tables().items()
+                    if k[0] == enum]
+    assert _enum("behavior.cuh", *key) == want
+
+
+def test_machine_kernel_output_pointers_follow_the_header():
+    """The wrapper passes one pointer an output field: BehWordRow's
+    fields, BehFlagRow's, then tof_filt and cmd (kBehOutTofFilt,
+    kBehOutCmd); its blocks hold every field once."""
+    from micro_quad_slam_tpu_torch.models import behavior as tb
+
+    text = (CSRC / "behavior.cuh").read_text()
+    assert re.search(r"kBehOutTofFilt\s*=\s*kBehWordRows\s*\+\s*"
+                     r"kBehFlagRows;", text)
+    assert re.search(r"kBehOutCmd\s*=\s*kBehOutTofFilt\s*\+\s*1;", text)
+    assert list(tb._OUT_FIELDS) == (_enum("behavior.cuh", "BehWordRow", "WR_")
+                                    + _enum("behavior.cuh", "BehFlagRow",
+                                            "FR_") + ["tof_filt", "cmd"])
+    held = [n for block in tb._OUT_BLOCKS for n in block]
+    assert sorted(held) == sorted(tb._OUT_FIELDS)
 
 
 UPWARD = tuple(f"micro_quad_slam_tpu_torch.{p}"

@@ -356,6 +356,18 @@ def cl_fuzz_telemetry() -> dict:
     return {k: np.stack([a[k] for a in arrs], axis=1) for k in arrs[0]}
 
 
+def ul_scenario_telemetry() -> dict:
+    """tests/test_torch_behavior.py's four fc_mock scenarios as the golden
+    UL machine's telemetry over its N_TICKS ticks: each field [T, 4]."""
+    from fc_mock import run_scenario
+    from test_behavior import telems_to_arrays
+    from test_torch_behavior import N_TICKS, SEEDS
+
+    arrs = [telems_to_arrays(run_scenario(sc, n_ticks=N_TICKS)[0])
+            for sc in SEEDS.values()]
+    return {k: np.stack([a[k] for a in arrs], axis=1) for k in arrs[0]}
+
+
 def jax_scan_draws(key, n_steps: int, dt_ms: int, scan_period_ms: int,
                    B: int) -> list:
     """The JAX simulator's scan-tick draws for a run from a state holding
@@ -653,6 +665,22 @@ def test_cl_fuzz_telemetry_equals_the_mock_now():
     np.testing.assert_array_equal(
         tiled["rf_m"][:, testdata.CL_FUZZ_SEEDS:].numpy(),
         np.concatenate([want["rf_m"]] * 2, axis=1))
+
+
+def test_ul_scenario_telemetry_equals_the_mock_now():
+    want = ul_scenario_telemetry()
+    got = testdata.reference("ul_scenario_telemetry")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    tiled = testdata.ul_scenarios(10, device="cpu")
+    assert tiled["t_ms"].shape == (want["t_ms"].shape[0], 10)
+    assert tiled["sys_health"].dtype == torch.int64
+    np.testing.assert_array_equal(tiled["yaw_deg"][:, 4:8].numpy(),
+                                  want["yaw_deg"])
+    armed = tiled["fc_armed"].numpy()
+    assert armed.any() and not armed.all()    # armed mid-run
 
 
 @pytest.mark.slow
