@@ -123,7 +123,12 @@ failure; nothing falls back to the CPU.  Phases:
      -239317596 and -401735680), the dry run's recentering case, the EKF
      at B=1024, the UL SLAM at B=128 and 100 ticks of the bench swarm;
  12. the CL behaviour machine (models/behavior_cl.py) at B=1024 on the
-     committed fuzzed schedules, equal to its CPU run;
+     committed fuzzed schedules, equal to its CPU run; then the swarm
+     flying it (sim_init(machine="cl"), testdata.cl_swarm) at B=64, from
+     cl_swarm.rooms' mid-hover start for 100 ticks of 1 ms and from the
+     ground for 200 ticks of 20 ms: state, command and hover lock of
+     every quad-tick equal to its CPU run, the poses within 1e-4 m, every
+     quad locked at the end;
  13. the native scanlog reader (io/native.py): built with g++ and equal
      to the Python reader on the SLAM bench flight.
 
@@ -2654,6 +2659,29 @@ def phase_behavior_cl(device, B: int = 1024) -> None:
         cpu_seconds=cpu_secs)
 
 
+def phase_swarm_cl(device, B: int = 64) -> None:
+    """The swarm flying the clean machine on the card (testdata.cl_swarm):
+    mid-hover and from the ground, every quad-tick's state, command and
+    hover lock equal to the CPU's run, poses within 1e-4 m."""
+    out = {}
+    for name, airborne, T in (("hover", True, 100), ("ground", False, 200)):
+        t0 = time.perf_counter()
+        got = testdata.cl_swarm(device, B, T, airborne)
+        secs = time.perf_counter() - t0
+        want = testdata.cl_swarm(torch.device("cpu"), B, T, airborne)
+        differ = [k for k in ("state", "cmd_kind", "cmd", "locked")
+                  if not np.array_equal(got[k], want[k])]
+        err = max(float(np.abs(got[k] - want[k]).max())
+                  for k in ("est_x", "est_y", "x", "y"))
+        check(not differ and err <= 1e-4, f"the clean swarm ({name}) on the "
+              f"card differs from the CPU: {differ}, poses {err}")
+        check(bool(got["locked"][-1].all()), f"the clean swarm ({name}): "
+              f"{int(got['locked'][-1].sum())} of {B} quads locked")
+        out[name] = {"ticks": T, "pose_err_m": err, "card_seconds": secs,
+                     "states": np.unique(got["state"]).tolist()}
+    say("swarm_cl", B=B, equal_cpu=True, **out)
+
+
 def phase_native_io(tmp_dir: Path) -> None:
     """The native scanlog reader (io/native.py) builds with this machine's
     g++ and reads the SLAM bench flight equal, field by field, to the
@@ -2716,6 +2744,7 @@ def main() -> int:
     phase_slam_feedback(device, smi)
     phase_sharded(device, smi)
     phase_behavior_cl(device)
+    phase_swarm_cl(device)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     phase_native_io(build)

@@ -426,20 +426,28 @@ def cmd_sim(args) -> int:
         sim_run, sim_state_from_numpy, sim_state_to_numpy)
     from micro_quad_slam_tpu_torch.ops.raycast import logical_grid
     from micro_quad_slam_tpu_torch.utils.obs import (
-        STATE_NAMES_UL, profile_trace, summary_line)
+        STATE_NAMES_CL, STATE_NAMES_UL, profile_trace, summary_line)
 
     device = _device(args.device, "simulate")
     if device is None:
         return 2
     B = args.quads
+    cl = args.profile == "cl"       # the clean revision's machine
     world = make_world(B, room=(-3.5, -3.5, 3.5, 3.5),
                        obstacles=[(1.5, -0.5, 2.5, 0.5)], device=device)
     if args.resume:
         ck, path = _restore(args.resume)
         st = sim_state_from_numpy(ck, device, seed=args.seed)
+        if (st.mapper is None) != cl:
+            print(f"error: {path} holds a swarm flying the "
+                  f"{'clean' if st.mapper is None else 'UL'} machine; "
+                  f"resume it with --profile "
+                  f"{'cl' if st.mapper is None else 'ul'}", file=sys.stderr)
+            return 2
         print(f"resuming sim from {path}")
     else:
-        st = sim_init(B, args.seed, spread_m=0.5, device=device)
+        st = sim_init(B, args.seed, spread_m=0.5, device=device,
+                      machine=args.profile)
     steps = int(args.seconds * 1000 / args.dt_ms)
     record = bool(args.out_prefix) or bool(args.emit_mavlink)
     with profile_trace(args.trace_dir) as trace:
@@ -455,16 +463,21 @@ def cmd_sim(args) -> int:
             step=steps)
         print(f"sim state -> {p}")
     states = diag["state"][-1].cpu().numpy()
-    mix = Counter(STATE_NAMES_UL[s] for s in states)
-    grids = logical_grid(st.mapper.grid).cpu().numpy()
-    occ = (grids > 10).reshape(B, -1).sum(1)
+    names = STATE_NAMES_CL if cl else STATE_NAMES_UL
+    mix = Counter(names[s] for s in states)
     pose_err = float(diag["pose_err"][-1].max())
+    if cl:
+        held = f"hover locked {int(diag['locked'][-1].sum())}/{B}"
+    else:
+        grids = logical_grid(st.mapper.grid).cpu().numpy()
+        occ = (grids > 10).reshape(B, -1).sum(1)
+        held = f"occupied cells/quad median={int(np.median(occ))}"
     print(f"swarm {B} quads x {args.seconds}s: final states {dict(mix)}; "
-          f"occupied cells/quad median={int(np.median(occ))}; "
-          f"pose err max={pose_err:.3f} m")
+          f"{held}; pose err max={pose_err:.3f} m")
     if args.out_prefix:
-        np.save(f"{args.out_prefix}_grids.npy", grids)
-        print(f"grids -> {args.out_prefix}_grids.npy")
+        if not cl:
+            np.save(f"{args.out_prefix}_grids.npy", grids)
+            print(f"grids -> {args.out_prefix}_grids.npy")
         logs = sim_diag_to_scanlogs(diag)
         for b, lg in enumerate(logs[:4]):
             write_scanlog(f"{args.out_prefix}_q{b}.bin", lg)
@@ -639,10 +652,13 @@ def main(argv=None) -> int:
                          "torch generator: not the JAX CLI's draws); on a "
                          "resume from a JAX checkpoint, the seed of the "
                          "generator that replaces its key")
-    pm.add_argument("--profile", default="ul", choices=("ul", "cl"))
+    pm.add_argument("--profile", default="ul", choices=("ul", "cl"),
+                    help="the machine the swarm flies: ul (uav_local_nav.c: "
+                         "mapping, frontier exploration) or cl "
+                         "(clean_uav_fc_tof_nav.c's hover machine, no map)")
     pm.add_argument("--out-prefix",
-                    help="write the logical grids (.npy) and the first 4 "
-                         "quads' scanlogs (PREFIX_q<b>.bin)")
+                    help="write the logical grids (.npy; ul only) and the "
+                         "first 4 quads' scanlogs (PREFIX_q<b>.bin)")
     pm.add_argument("--emit-mavlink",
                     help="write quad 0's MAVLink command stream to a file")
     pm.add_argument("--save-state", help="checkpoint the final sim state, "

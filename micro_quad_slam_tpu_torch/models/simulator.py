@@ -12,22 +12,39 @@ Each sim step composes the whole framework, for the [B] batch at once:
   behavior       -> commands (models/behavior.py)      [every step]
   dynamics       -> pose/velocity integration          [every step]
 
+The swarm flies one of two machines, chosen by the machine state it
+carries (sim_init(machine=)): the UL machine (BehaviorState,
+uav_local_nav.c: mapping, frontier exploration, turning) or the clean
+revision's hover machine (BehaviorClState, models/behavior_cl.py,
+clean_uav_fc_tof_nav.c).  The clean revision has no mapper: its tick
+scans the ToF (whose minima feed its ToF filter) but makes no map step
+and no frontier query, and its state holds no map grids (`mapper` is
+None).  Its telemetry reports the enabled sensor bits as the health bits,
+and its rangefinder and flow quality at every height (its prearm gate
+reads both on the ground, clean:999-1036); the FC model takes its
+Z+yaw setpoint (CMD_Z_YAW) as an altitude hold at the commanded z, a
+climb of (z - alt) clamped to +/-0.3 m/s as the position setpoint's z,
+with the XY velocity setpoint at zero and the yaw held.
+
 Under a torch profiler (utils/obs.py) sim_run is the span `sim` and each
 tick's stages are its spans sim.scan (the scan branch: world raytrace,
 scan synth, beams, map step), sim.frontier (scan ticks), sim.flow,
 sim.ekf, sim.behavior (the machine and the map init it asks for) and
 sim.fc (twice a tick: the telemetry, then the FC applying the outputs
 and the dynamics); the host counters sim.ticks and sim.scan_ticks count
-every tick, and the device counter sim.turning the quad-ticks spent in
-TURNING.  Untraced, the spans are no-ops and sim.turning is not computed.
+every tick and sim.cl_ticks the clean machine's ticks, and the device
+counters sim.turning the quad-ticks spent in TURNING (UL) and
+sim.cl_locked those with the clean machine's hover locked.  Untraced, the
+spans are no-ops and the device counters are not computed.
 
 The time is a host integer, so whether a tick scans is decided on the
 host: the scan branch and the frontier refresh run only on scan ticks, by
 a Python `if`, where the JAX module selects with lax.cond.  A scan tick's
 map update is ops/residentx.map_step: the map-step kernel on a CUDA
-device, its plain version on the CPU.  Every tick's behaviour step is
+device, its plain version on the CPU.  Every UL tick's behaviour step is
 models/behavior.py::behavior_step: one launch of the machine's kernel on
-a CUDA device, its plain torch path on the CPU.
+a CUDA device, its plain torch path on the CPU; a clean tick's is
+models/behavior_cl.py::behavior_step_cl, torch on either.
 
 Randomness.  The JAX module draws from jax.random; this one from an
 explicit CPU torch.Generator that the state carries in place of the key
@@ -67,6 +84,13 @@ from micro_quad_slam_tpu_torch.models.behavior import (
     behavior_state_to_numpy,
     behavior_step,
 )
+from micro_quad_slam_tpu_torch.models.behavior_cl import (
+    CL_HOVER,
+    CMD_Z_YAW,
+    BehaviorClState,
+    behavior_cl_init,
+    behavior_step_cl,
+)
 from micro_quad_slam_tpu_torch.ops.beams import extract_beams
 from micro_quad_slam_tpu_torch.ops.ekf import EkfState, ekf_init, ekf_step
 from micro_quad_slam_tpu_torch.ops.raycast import (
@@ -84,11 +108,17 @@ from micro_quad_slam_tpu_torch.replay.mapping import (
     mapping_state_to_numpy,
 )
 from micro_quad_slam_tpu_torch.utils import obs
-from micro_quad_slam_tpu_torch.utils.config import PipelineConfig, UL_PROFILE
+from micro_quad_slam_tpu_torch.utils.config import (
+    CL_PROFILE,
+    UL_PROFILE,
+    PipelineConfig,
+)
 from micro_quad_slam_tpu_torch.utils.device import as_device
 
 _F32 = np.float32
 HEALTH_ALL = 0x01 | 0x2000 | 0x4000 | 0x400000
+FLOW_Q = 85                                # the oracle flow sensor's quality
+MACHINES = ("ul", "cl")
 _DEG2RAD = float(_F32(np.pi / 180.0))      # jnp.deg2rad's float32 constant
 FRONTIER_OFFSETS = (0.0, 90.0, -90.0, 180.0)
 
@@ -268,8 +298,8 @@ class SimState(NamedTuple):
     vy: torch.Tensor
     alt: torch.Tensor
     fc: FcSim
-    beh: BehaviorState
-    mapper: MappingState
+    beh: BehaviorState | BehaviorClState   # the machine the swarm flies
+    mapper: MappingState | None            # None: the clean machine's
     ekf: EkfState
     tof_min: torch.Tensor       # [B, 4] latest per-dir minima
     scan_count: int             # host int
@@ -288,8 +318,9 @@ def _uniform(gen: torch.Generator, n: int, lo: float, hi: float):
 
 def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
              spread_m: float = 1.0, airborne: bool = False,
-             hover_alt_m: float = 0.5, device=None, start=None,
-             t0_ms: int = 0) -> SimState:
+             hover_alt_m: float | None = None, device=None, start=None,
+             t0_ms: int = 0, machine: str = "ul",
+             xy_stamp_ms: int = 1) -> SimState:
     """The swarm's start state on `device` (the CUDA device unless told
     otherwise): quads spread uniformly over +/-spread_m with random
     headings, drawn on a CPU generator seeded with `seed`, which the state
@@ -297,14 +328,28 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
     every quad its own start pose in place of the draws; the draws are
     made all the same, so the generator's scan draws do not depend on it.
 
-    airborne=True starts the fleet mid-mission: armed in GUIDED at hover
-    altitude, behaviour in EXPLORE with captured hover targets, and the
-    mapper inited at the start pose, so that every scan tick from t=0 runs
-    a real map update.  t0_ms is the mission clock at the start: the XY
-    hold is stamped at 1 ms and the frontier timer at 0, so from a clock
-    past their periods (gates.xy_stable_hold_ms, behavior.frontier_eval_ms)
-    an airborne quad explores from its first tick: it flies forward, or
-    turns from what its first scan and frontier queries show."""
+    `machine` is the flight machine the swarm flies: "ul" (BehaviorState)
+    or "cl", the clean revision's (BehaviorClState; no map grids).
+
+    airborne=True starts the fleet mid-mission, armed in GUIDED at
+    hover_alt_m (None: 0.5 m for "ul", CL_PROFILE's hover target, 0.45 m,
+    for "cl").  UL: behaviour in EXPLORE with captured hover targets, and
+    the mapper inited at the start pose, so that every scan tick from t=0
+    runs a real map update.  CL: in CL_HOVER as enter_state leaves it after
+    the takeoff (clean:1957-2031), the hover targets not locked, the
+    prelock captured at the start pose, the yaw target at the start
+    heading, alt_max and alt_est at the altitude from the rangefinder.
+    t0_ms is the mission clock at the start; the XY hold is stamped at
+    xy_stamp_ms (UL: the frontier timer at 0), so from a clock past the
+    stamp plus gates.xy_stable_hold_ms (UL: and behavior.frontier_eval_ms)
+    an airborne UL quad explores from its first tick, flying forward or
+    turning from what its first scan and frontier queries show, and a CL
+    quad locks its hover."""
+    if machine not in MACHINES:
+        raise ValueError(f"machine {machine!r}: one of {MACHINES}")
+    cl = machine == "cl"
+    if hover_alt_m is None:
+        hover_alt_m = CL_PROFILE.behavior.hover_target_m if cl else 0.5
     device = as_device(device)
     gen = torch.Generator().manual_seed(seed)
     drawn = (_uniform(gen, batch, -spread_m, spread_m),
@@ -313,8 +358,9 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
     x0, y0, yaw0 = (torch.as_tensor(v, dtype=torch.float32, device=device)
                     for v in (drawn if start is None else start))
     fc = fc_init(batch, device=device)
-    beh = behavior_init(batch, device)
-    mapper = mapping_init(batch, geom, device)
+    beh = behavior_cl_init(batch, device) if cl else behavior_init(batch,
+                                                                   device)
+    mapper = None if cl else mapping_init(batch, geom, device)
     ekf = ekf_init((batch,), device=device)
     alt = torch.zeros((batch,), device=device)
     if airborne:
@@ -325,17 +371,23 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
                             device=device),
             motor=torch.full((batch,), 1500.0, device=device))
         yes = torch.ones((batch,), dtype=torch.bool, device=device)
-        beh = beh._replace(
-            st=torch.full((batch,), ST_EXPLORE, dtype=torch.int32,
-                          device=device),
-            yaw_tv=yes, yaw_t=yaw0,
-            hover_valid=yes, hover_x=x0, hover_y=y0,
-            hover_z=-alt, hover_yaw=yaw0,
-            alt_est=alt, alt_src=torch.full((batch,), ALT_RF,
-                                            dtype=torch.int32, device=device),
-            to_sent=yes, to_started=yes, armed_prev=yes,
-            xy_since=torch.ones((batch,), dtype=torch.int32, device=device))
-        mapper = mapper._replace(inited=yes, origin_x=x0, origin_y=y0)
+        i32 = lambda v: torch.full((batch,), v, dtype=torch.int32,  # noqa: E731
+                                   device=device)
+        if cl:
+            beh = beh._replace(
+                st=i32(CL_HOVER), yaw_tv=yes, yaw_t=yaw0, alt_max=alt,
+                alt_est=alt, alt_src=i32(ALT_RF), hv_pre_valid=yes,
+                hv_pre_x=x0, hv_pre_y=y0, to_sent=yes, to_started=yes,
+                armed_prev=yes, xy_since=i32(xy_stamp_ms))
+        else:
+            beh = beh._replace(
+                st=i32(ST_EXPLORE), yaw_tv=yes, yaw_t=yaw0,
+                hover_valid=yes, hover_x=x0, hover_y=y0,
+                hover_z=-alt, hover_yaw=yaw0,
+                alt_est=alt, alt_src=i32(ALT_RF),
+                to_sent=yes, to_started=yes, armed_prev=yes,
+                xy_since=i32(xy_stamp_ms))
+            mapper = mapper._replace(inited=yes, origin_x=x0, origin_y=y0)
         ekf = ekf_init((batch,), x0=x0, y0=y0, z0=alt,
                        yaw0=yaw0 * _DEG2RAD, device=device)
     nan = lambda *s: torch.full(s, float("nan"), device=device)       # noqa: E731
@@ -367,7 +419,9 @@ def sim_state_from_numpy(d, device=None, seed: int = 0) -> SimState:
     has no torch counterpart: the port's state draws on a new CPU
     generator seeded with `seed`.  A `gen` entry (the generator's state as
     uint8, which a port checkpoint holds) restores the generator instead,
-    so a resumed run draws what the unbroken one would."""
+    so a resumed run draws what the unbroken one would.  A port state of
+    the clean machine (sim_state_to_numpy's `machine` "cl") comes back as
+    one: its BehaviorClState and no mapper."""
     device = as_device(device)
     d = d._asdict() if hasattr(d, "_asdict") else dict(d)
     gen = torch.Generator().manual_seed(seed)
@@ -380,10 +434,16 @@ def sim_state_from_numpy(d, device=None, seed: int = 0) -> SimState:
     fc = FcSim(**{k: ten(fc[k], np_dtype[_FC_DTYPES[k]] if k in _FC_DTYPES
                          else np.float32) for k in FcSim._fields})
     ekf = nested(d["ekf"])
+    cl = str(d.get("machine", "ul")) == "cl"
+    if cl:
+        beh = nested(d["beh"])
+        beh = BehaviorClState(**{k: torch.from_numpy(np.array(beh[k])).to(
+            device) for k in BehaviorClState._fields})
+    else:
+        beh = behavior_state_from_numpy(d["beh"], device)
     return SimState(
-        t_ms=int(d["t_ms"]), gen=gen,
-        fc=fc, beh=behavior_state_from_numpy(d["beh"], device),
-        mapper=mapping_state_from_numpy(d["mapper"], device),
+        t_ms=int(d["t_ms"]), gen=gen, fc=fc, beh=beh,
+        mapper=None if cl else mapping_state_from_numpy(d["mapper"], device),
         ekf=EkfState(ten(ekf["mean"], np.float32), ten(ekf["cov"], np.float32)),
         scan_count=int(d["scan_count"]), cam_valid=bool(d["cam_valid"]),
         **{k: ten(d[k], dt) for k, dt in _SIM_DTYPES.items()})
@@ -392,15 +452,18 @@ def sim_state_from_numpy(d, device=None, seed: int = 0) -> SimState:
 def sim_state_to_numpy(state: SimState) -> dict:
     """The port's SimState -> nested dict of numpy arrays with the JAX
     package's field names and layouts, every field but `key` (the port
-    holds a torch generator there)."""
+    holds a torch generator there).  A state of the clean machine, which
+    the JAX package's swarm does not fly, adds `machine` "cl" and has its
+    BehaviorClState's fields under `beh` and no `mapper`."""
     cpu = lambda v: v.detach().cpu().numpy()                          # noqa: E731
     out = {k: cpu(getattr(state, k)) for k in _SIM_DTYPES}
+    machine = ({"machine": "cl"} if state.mapper is None
+               else {"mapper": mapping_state_to_numpy(state.mapper)})
     out.update(
         t_ms=np.int32(state.t_ms), scan_count=np.int32(state.scan_count),
         cam_valid=np.bool_(state.cam_valid),
         fc={k: cpu(v) for k, v in state.fc._asdict().items()},
-        beh=behavior_state_to_numpy(state.beh),
-        mapper=mapping_state_to_numpy(state.mapper),
+        beh=behavior_state_to_numpy(state.beh), **machine,
         ekf={"mean": cpu(state.ekf.mean), "cov": cpu(state.ekf.cov)})
     return out
 
@@ -438,7 +501,8 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     With record=True the per-step diagnostics include the raw scan cells
     (zeros between scan ticks) so a run can be converted to
     reference-format scanlogs.  The input state is not modified.  Returns
-    (state, diag)."""
+    (state, diag); a clean machine's diag adds `locked`, its hover lock
+    after the tick."""
     B = state.x.shape[0]
     if B != world.room.shape[0]:
         raise ValueError(
@@ -453,6 +517,7 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     fc = state.fc
     mapper = state.mapper
     tof_min = state.tof_min
+    cl = isinstance(state.beh, BehaviorClState)
 
     # ---- scan tick: synth ToF + map update from the EKF pose estimate
     # (self-localized mapping), a host decision ----
@@ -461,6 +526,8 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     gen = state.gen
     obs.count("sim.ticks")
     obs.count("sim.scan_ticks", int(scan_due))
+    if cl:
+        obs.count("sim.cl_ticks")
     if scan_due:
         with obs.span("sim.scan"):
             if draws is None:
@@ -471,11 +538,12 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
                                        normal, uniform, noise_mm, dropout_p,
                                        cfg)
             beams, tof_min = extract_beams(scan_cells, cfg.tof)
-            grid = mapper.grid.clone()
-            map_step(grid, beams, state.ekf.mean[..., 0],
-                     state.ekf.mean[..., 1], state.yaw, mapper.origin_x,
-                     mapper.origin_y, mapper.inited, cfg, geom)
-            mapper = mapper._replace(grid=grid)
+            if not cl:
+                grid = mapper.grid.clone()
+                map_step(grid, beams, state.ekf.mean[..., 0],
+                         state.ekf.mean[..., 1], state.yaw, mapper.origin_x,
+                         mapper.origin_y, mapper.inited, cfg, geom)
+                mapper = mapper._replace(grid=grid)
 
     # ---- flow: oracle sensor model, or pyramidal LK on rendered
     # downward-camera frames ----
@@ -517,7 +585,10 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
             gnd = torch.clamp(ground, min=0.05)
             of_rate_x = W(ground > 0.05, vbx / gnd, float("nan"))
             of_rate_y = W(ground > 0.05, vby / gnd, float("nan"))
-            of_q = W(airborne, 85, 0).to(torch.int32)
+            if cl:
+                of_q = torch.full((B,), FLOW_Q, dtype=torch.int32, device=dev)
+            else:
+                of_q = W(airborne, FLOW_Q, 0).to(torch.int32)
     with obs.span("sim.ekf"):
         ekf, _ = ekf_step(state.ekf, torch.full((B,), fdt, device=dev),
                           of_rate_x, of_rate_y, of_q, ground, yaw_rad,
@@ -532,7 +603,7 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
     # ---- frontier queries from the mapper grid, refreshed on scan ticks
     # only: the grid only changes then ----
     fr = state.frontier
-    if scan_due:
+    if scan_due and not cl:
         with obs.span("sim.frontier"):
             fr = frontier_scores(mapper.grid, mean[..., 0], mean[..., 1],
                                  state.yaw, FRONTIER_OFFSETS,
@@ -575,33 +646,39 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
             "have_of": yes,
             "of_last_ms": bt,
             "of_q": of_q,
-            "have_rf": airborne,
-            "rf_last_ms": W(airborne, bt, torch.clamp(bt - 1000, min=0)),
-            "rf_m": W(airborne, state.alt, float("nan")),
+            "have_rf": yes if cl else airborne,
+            "rf_last_ms": bt if cl else W(airborne, bt,
+                                          torch.clamp(bt - 1000, min=0)),
+            "rf_m": state.alt if cl else W(airborne, state.alt,
+                                           float("nan")),
             "want_arm": torch.as_tensor(want_arm, device=dev).expand(B),
             "have_takeoff_ack": fc.have_ack,
             "takeoff_ack_res": fc.ack_res,
             "takeoff_ack_ms": fc.ack_ms,
             "takeoff_accept_ms": fc.accept_ms,
             "tof_min": tof_min,
-            "map_inited": mapper.inited,
-            "frontier_f": fr[..., 0],
-            "frontier_r": fr[..., 1],
-            "frontier_l": fr[..., 2],
-            "frontier_b": fr[..., 3],
         }
+        if cl:
+            tm["sys_enabled"] = tm["sys_health"]
+        else:
+            tm.update(map_inited=mapper.inited, frontier_f=fr[..., 0],
+                      frontier_r=fr[..., 1], frontier_l=fr[..., 2],
+                      frontier_b=fr[..., 3])
 
     # ---- behavior tick ----
     with obs.span("sim.behavior"):
-        beh, out = behavior_step(state.beh, tm, cfg)
+        if cl:
+            beh, out = behavior_step_cl(state.beh, tm, cfg)
+        else:
+            beh, out = behavior_step(state.beh, tm, cfg)
 
-        # ---- map init on hover lock (uav_local_nav.c:2187-2194) ----
-        minit = out["map_init"] & ~mapper.inited
-        mapper = mapper._replace(
-            origin_x=W(minit, out["map_origin_x"], mapper.origin_x),
-            origin_y=W(minit, out["map_origin_y"], mapper.origin_y),
-            inited=mapper.inited | minit,
-        )
+            # ---- map init on hover lock (uav_local_nav.c:2187-2194) ----
+            minit = out["map_init"] & ~mapper.inited
+            mapper = mapper._replace(
+                origin_x=W(minit, out["map_origin_x"], mapper.origin_x),
+                origin_y=W(minit, out["map_origin_y"], mapper.origin_y),
+                inited=mapper.inited | minit,
+            )
 
     with obs.span("sim.fc"):
         # ---- FC applies outputs ----
@@ -637,6 +714,12 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
             pos_cmd=W(pos[..., None], cmd[..., :3], fc.pos_cmd),
             pos_cmd_yaw=W(pos, cmd[..., 3], fc.pos_cmd_yaw),
         )
+        if cl:
+            # Z+yaw: an altitude hold at the commanded z (NED, down)
+            fc = fc._replace(climb_cmd=W(
+                kind == CMD_Z_YAW,
+                torch.clamp((-cmd[..., 0]) - state.alt, _f(-0.3), _f(0.3)),
+                fc.climb_cmd))
 
         # ---- dynamics ----
         spool = fc.armed & (fc.takeoff_active | airborne)
@@ -691,6 +774,8 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
         "alt": alt,
         "pose_err": torch.hypot(mean[..., 0] - x, mean[..., 1] - y),
     }
+    if cl:
+        diag["locked"] = beh.hv_locked
     if record:
         # everything a scanrec needs (uav_local_nav.c:1549-1581), sampled
         # at this tick; the host-side conversion keeps the scan ticks
@@ -763,7 +848,10 @@ def sim_run(state: SimState, world: World, n_steps: int,
             return state, {}
         diag = {key: torch.stack([dg[key] for dg in diags])
                 for key in diags[0]}
-        obs.count("sim.turning", lambda: diag["state"] == ST_TURNING)
+        if "locked" in diag:
+            obs.count("sim.cl_locked", lambda: diag["locked"])
+        else:
+            obs.count("sim.turning", lambda: diag["state"] == ST_TURNING)
     return state, diag
 
 

@@ -431,3 +431,32 @@ def ul_scenarios(B: int, device=None) -> dict:
     """ul_scenario_telemetry's four scenarios tiled to B quads, as [T, B]
     tensors on `device` for the UL machine's step (_tiled)."""
     return _tiled("ul_scenario_telemetry", B, device)
+
+
+def cl_swarm(device=None, B: int = 64, T: int = 100,
+             airborne: bool = True) -> dict:
+    """The swarm flying the clean machine (sim_init(machine="cl")) on
+    `device`: B quads from sim_init's seeded spread (seed 7, 0.5 m) in the
+    CLI's 7 m room with its box.  Airborne: cl_swarm.rooms' start, T ticks
+    of 1 ms from the clock at 1 s, the XY hold stamped at 50 ms (locked at
+    the 51st tick); else on the ground, T ticks of 20 ms through arming,
+    takeoff and the hover lock.  Per quad-tick [T, B] the state, the
+    command's kind and values [T, B, 4], the hover lock and the EKF
+    position, and the final true pose, as numpy."""
+    from micro_quad_slam_tpu_torch.models.simulator import (
+        make_world, sim_init, sim_run)
+    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE
+    from micro_quad_slam_tpu_torch.utils.device import as_device
+
+    device = as_device(device)
+    world = make_world(B, room=(-3.5, -3.5, 3.5, 3.5),
+                       obstacles=[(1.5, -0.5, 2.5, 0.5)], device=device)
+    st = sim_init(B, 7, spread_m=0.5, airborne=airborne, device=device,
+                  t0_ms=999 if airborne else 0, machine="cl",
+                  xy_stamp_ms=50)
+    fin, d = sim_run(st, world, T, CL_PROFILE, dt_ms=1 if airborne else 20,
+                     record=True)
+    out = {k: d[k] for k in ("state", "cmd_kind", "cmd", "locked", "est_x",
+                             "est_y")}
+    out.update(x=fin.x, y=fin.y, yaw=fin.yaw)
+    return {k: v.cpu().numpy() for k, v in out.items()}
