@@ -12,8 +12,8 @@ builds and checks their hand-written CUDA kernels (csrc/replay_exact.cu
 with its snapshot and map-step entries, csrc/replay_cone.cu,
 csrc/match_lattice.cu, the replays' carry kernel, csrc/carry.cuh,
 which both replay libraries export, the EKF replay kernel,
-csrc/ekf.cuh, SLAM pass 0, and the swarm's flight state machine,
-csrc/behavior.cuh).  Each phase prints one line and raises on
+csrc/ekf.cuh, SLAM pass 0, and the swarm's flight state machines,
+csrc/behavior.cuh and csrc/behavior_cl.cuh).  Each phase prints one line and raises on
 failure; nothing falls back to the CPU.  Phases:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -31,7 +31,10 @@ failure; nothing falls back to the CPU.  Phases:
      state machine's kernel (csrc/behavior.cuh) == behavior_step_plain
      on the card, bit for bit (the new state and every output, tick for
      tick), on the four fc_mock scenarios (ul_scenario_telemetry) tiled
-     to B=1000, one launch a tick; then
+     to B=1000, one launch a tick, and the clean machine's
+     (csrc/behavior_cl.cuh) == behavior_step_cl_plain likewise on its
+     15 scenarios and 32 fuzzed schedules (cl_scenario_telemetry,
+     cl_fuzz_telemetry); then
      exact kernel == plain torch on the card, bit for bit (grid, origins,
      used, kf_flags, filt), on random flights with recenters, a saturating
      endpoint, a recenter inside a run of gated frames, short beams, and
@@ -90,7 +93,12 @@ failure; nothing falls back to the CPU.  Phases:
      time per launch against its plain version and its bound on the run's
      own scan ticks, and the machine kernel's device time per launch
      against the plain machine's time and its bytes and dispatch bounds
-     on the run's first tick;
+     on the run's first tick; last, the clean machine on its main path:
+     two runs of cl_swarm.rooms' job shape (B=1024 mid-hover, 100 ticks,
+     record=True), one kernel launch a tick and every quad locked, the
+     kernel's device time per launch in a third run, profiled, and on
+     the first tick the same numbers as the UL machine's beside its
+     registers, spills and blocks per SM;
   9. the live-topology path (run before the bench phases): the first
      SLAM bench flight as a T=256 dual-UART capture (scanlog_to_wirecap)
      through replay_wirecap with kernel="residentx" and "hybridx", each
@@ -122,8 +130,9 @@ failure; nothing falls back to the CPU.  Phases:
      run: the bench replay through residentx and hybridx (checksums
      -239317596 and -401735680), the dry run's recentering case, the EKF
      at B=1024, the UL SLAM at B=128 and 100 ticks of the bench swarm;
- 12. the CL behaviour machine (models/behavior_cl.py) at B=1024 on the
-     committed fuzzed schedules, equal to its CPU run; then the swarm
+ 12. the CL behaviour machine (models/behavior_cl.py; on the card its
+     kernel) at B=1024 on the committed fuzzed schedules, equal to its
+     CPU run; then the swarm
      flying it (sim_init(machine="cl"), testdata.cl_swarm) at B=64, from
      cl_swarm.rooms' mid-hover start for 100 ticks of 1 ms and from the
      ground for 200 ticks of 20 ms: state, command and hover lock of
@@ -165,6 +174,8 @@ from micro_quad_slam_tpu_torch.ops import conex as cx
 from micro_quad_slam_tpu_torch.ops import matchlattice as ml
 from micro_quad_slam_tpu_torch.ops import residentx as rx
 from micro_quad_slam_tpu_torch.ops import scanmatch as sm
+from micro_quad_slam_tpu_torch.models import behavior as tb
+from micro_quad_slam_tpu_torch.models import behavior_cl as bcl
 from micro_quad_slam_tpu_torch.models import simulator as sim
 from micro_quad_slam_tpu_torch.replay import fusion as fu
 from micro_quad_slam_tpu_torch.replay import mapping as tm
@@ -232,12 +243,18 @@ KERNELS = {
         # (no Pallas kernel of its own)
         "source": "micro_quad_slam_tpu_torch/csrc/behavior.cuh",
         "replaces": "micro_quad_slam_tpu/models/behavior.py:175"},
+    "behavior_step_cl": {
+        # the clean revision's hover machine, exported by the exact
+        # kernel's library; the counterpart of the JAX machine's jnp.where
+        # step (no Pallas kernel of its own)
+        "source": "micro_quad_slam_tpu_torch/csrc/behavior_cl.cuh",
+        "replaces": "micro_quad_slam_tpu/models/behavior_cl.py:130"},
 }
 # the kernels whose wrappers count each launch in the counter
 # launches.<name> (utils/obs.py)
 LAUNCHED = ("replay_exact", "replay_cone", "match_lattice",
             "replay_exact_snap", "map_step", "carry", "ekf_replay",
-            "behavior_step")
+            "behavior_step", "behavior_step_cl")
 # the card's peaks (H100 SXM datasheet at 700 W): HBM bytes/s, and the
 # dispatch rates of the kernels' operations.  The datasheet's 67e12 float32
 # FLOP/s counts an fma as two operations; the kernels are built with
@@ -466,7 +483,7 @@ def _sass_counts(path) -> dict:
 
 # the kernels' occupancy queries: function -> (its C entry, the entry's
 # argument, or {label: argument} for a kernel launched at several shapes);
-# the carry, EKF and machine entries take none.  Which libraries export each entry
+# the carry, EKF and machines' entries take none.  Which libraries export each entry
 # is ops/_build.py::ENTRIES's.
 OCCUPANCY = {
     "replay_exact_kernel<false>": ("mqs_replay_exact_blocks_per_sm", 0),
@@ -475,6 +492,7 @@ OCCUPANCY = {
     "carry_kernel": ("mqs_carry_blocks_per_sm", None),
     "ekf_replay_kernel": ("mqs_ekf_replay_blocks_per_sm", None),
     "behavior_step_kernel": ("mqs_behavior_step_blocks_per_sm", None),
+    "behavior_step_cl_kernel": ("mqs_behavior_step_cl_blocks_per_sm", None),
     "replay_cone_kernel<false>": ("mqs_replay_cone_blocks_per_sm", 0),
     "replay_cone_kernel<true>": ("mqs_replay_cone_blocks_per_sm", 1),
     "match_lattice_kernel": ("mqs_match_lattice_blocks_per_sm",
@@ -705,38 +723,64 @@ def phase_ekf_vs_plain(device) -> None:
         recenters=recenters)
 
 
-def phase_behavior_vs_plain(device, B: int = 1000) -> None:
-    """The flight state machine's kernel == behavior_step_plain on the
-    card, bit for bit (the new state and every output, tick for tick), on
-    the four fc_mock scenarios (ul_scenario_telemetry) tiled to B quads
-    (1,000: not a multiple of the kernel's block); one launch a tick."""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
+# the flight state machines by launch counter, which is also the name
+# sim_step calls the machine by: their kernel and plain steps, start
+# state, profile and MachineKernel, and the committed schedules that
+# drive them
+MACHINES = {
+    "behavior_step": {
+        "kernel": tb.behavior_step_kernel, "plain": tb.behavior_step_plain,
+        "init": tb.behavior_init, "cfg": UL_PROFILE, "tables": tb.UL_KERNEL,
+        "schedules": {"ul_scenarios": testdata.ul_scenarios}},
+    "behavior_step_cl": {
+        "kernel": bcl.behavior_step_cl_kernel,
+        "plain": bcl.behavior_step_cl_plain, "init": bcl.behavior_cl_init,
+        "cfg": port.CL_PROFILE, "tables": bcl.CL_KERNEL,
+        "schedules": {"cl_scenarios": testdata.cl_scenarios,
+                      "cl_fuzz": testdata.cl_fuzz}}}
 
-    seq = testdata.ul_scenarios(B, device)
-    T = int(seq["t_ms"].shape[0])
-    before = launch_counts()["behavior_step"]
-    st_k = st_p = tb.behavior_init(B, device)
-    states = set()
-    for i in range(T):
-        tel = {k: v[i] for k, v in seq.items()}
-        st_k, out_k = tb.behavior_step_kernel(st_k, tel, UL_PROFILE)
-        st_p, out_p = tb.behavior_step_plain(st_p, tel, UL_PROFILE)
-        assert_same((st_k, out_k), (st_p, out_p), f"machine tick {i}")
-        if i % 100 == 0 or i == T - 1:
-            states |= set(out_p["state"].unique().tolist())
+
+def phase_behavior_vs_plain(device, machine: str = "behavior_step",
+                            B: int = 1000) -> None:
+    """A flight state machine's kernel == its plain path on the card, bit
+    for bit (the new state and every output, tick for tick), on its
+    committed schedules tiled to B quads (1,000: not a multiple of the
+    kernels' block): the UL machine (csrc/behavior.cuh) on the four
+    fc_mock scenarios (ul_scenario_telemetry), the clean one
+    (csrc/behavior_cl.cuh) on its 15 scenarios and 32 fuzzed schedules
+    (cl_scenario_telemetry, cl_fuzz_telemetry); one launch a tick."""
+    m = MACHINES[machine]
+    before = launch_counts()[machine]
+    states, ticks = set(), {}
+    for name, load in m["schedules"].items():
+        seq = load(B, device)
+        T = ticks[name] = int(seq["t_ms"].shape[0])
+        st_k = st_p = m["init"](B, device)
+        for i in range(T):
+            tel = {k: v[i] for k, v in seq.items()}
+            st_k, out_k = m["kernel"](st_k, tel, m["cfg"])
+            st_p, out_p = m["plain"](st_p, tel, m["cfg"])
+            assert_same((st_k, out_k), (st_p, out_p),
+                        f"{machine} {name} tick {i}")
+            if i % 100 == 0 or i == T - 1:
+                states |= set(out_p["state"].unique().tolist())
     torch.cuda.synchronize()
-    launches = launch_counts()["behavior_step"] - before
-    check(launches == T, f"machine kernel launched {launches} times in "
-                         f"{T} ticks")
-    say("behavior_vs_plain", kernel="behavior_step", B=B, ticks=T,
+    launches = launch_counts()[machine] - before
+    check(launches == sum(ticks.values()), f"{machine} kernel launched "
+          f"{launches} times in {sum(ticks.values())} ticks")
+    say("behavior_vs_plain" if machine == "behavior_step"
+        else "behavior_cl_vs_plain", kernel=machine, B=B, ticks=ticks,
         bit_equal=True, launches=launches, states_sampled=sorted(states))
 
 
 def _dispatch_bound(function: str, steps: int = 1) -> tuple:
     """A kernel of the replay_exact library at one instruction a clock:
     `steps` dependent passes over its static SASS instructions (one warp's,
-    from the build facts) at the card's maximum SM clock.  Returns
-    (instructions, clock MHz, ms; None without cuobjdump's count)."""
+    from the build facts) at the card's maximum SM clock.  A kernel that
+    branches (the machines' switch over their states) runs fewer in a
+    warp than it has, so for it this is an upper estimate of the floor.
+    Returns (instructions, clock MHz, ms; None without cuobjdump's
+    count)."""
     sass = BUILD_FACTS.get("replay_exact", {}).get(function, {}).get(
         "sass") or {}
     clock = subprocess.run(
@@ -747,19 +791,18 @@ def _dispatch_bound(function: str, steps: int = 1) -> tuple:
     return n, clock, (steps * n / (float(clock) * 1e6) * 1e3 if n else None)
 
 
-def _machine_bound(tel: dict, state, B: int) -> dict:
-    """The machine kernel's least time a tick at B quads: bytes (each
-    quad's telemetry fields, its state read and written, its outputs,
-    once) over the HBM rate, and dispatch (_dispatch_bound: every warp
-    runs on an SM of its own at B <= 132 x 32)."""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
-
-    per_quad = sum(tel[k].element_size() * (4 if k == "tof_min" else 1)
-                   for k, _ in tb._TM_FIELDS)
+def _machine_bound(machine: str, tel: dict, state, B: int) -> dict:
+    """A machine kernel's least time a tick at B quads: bytes (each quad's
+    telemetry fields, its state read and written, its outputs, once) over
+    the HBM rate, and dispatch (_dispatch_bound: every warp runs on an SM
+    of its own at B <= 132 x 32)."""
+    k = MACHINES[machine]["tables"]
+    per_quad = sum(tel[n].element_size() * (4 if n == "tof_min" else 1)
+                   for n in k.tm_names)
     state_bytes = sum(v.element_size() * (v.numel() // B) for v in state)
     out_bytes = 4 * len(tb.WORD_OUTPUTS) + 16 + len(tb.FLAG_OUTPUTS)
     nbytes = B * (per_quad + 2 * state_bytes + out_bytes)
-    instructions, clock, dispatch_ms = _dispatch_bound("behavior_step_kernel")
+    instructions, clock, dispatch_ms = _dispatch_bound(f"{machine}_kernel")
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_bytes_per_tick": nbytes, "bound_bytes_ms": bytes_ms,
             "sass_instructions": instructions, "max_sm_clock_mhz": clock,
@@ -2010,61 +2053,117 @@ def _map_step_alone(ticks) -> dict:
             "bound_ops_per_tick": ops / len(ticks), "ticks": len(ticks)}
 
 
-def _machine_operands(world, st0) -> tuple:
-    """The machine's operands at the swarm's first tick as sim_step
-    assembles them (strided and broadcast telemetry views included):
-    (state, telemetry)."""
+def _machine_operands(machine: str, world, st0, run: dict) -> tuple:
+    """A machine's operands at a swarm's first tick as sim_step assembles
+    them (strided and broadcast telemetry views included): (state,
+    telemetry)."""
     kept = []
-    real = sim.behavior_step
+    real = getattr(sim, machine)
 
     def keep(state, tel, cfg):
         kept.append((state, tel))
         return real(state, tel, cfg)
 
-    sim.behavior_step = keep
+    setattr(sim, machine, keep)
     try:
-        sim.sim_step(st0, world, UL_PROFILE, **testdata.SWARM_RUN)
+        sim.sim_step(st0, world, MACHINES[machine]["cfg"], **run)
     finally:
-        sim.behavior_step = real
+        setattr(sim, machine, real)
     return kept[0]
 
 
-def _machine_alone(world, st0, reps: int = 2000) -> dict:
-    """The machine kernel on the bench swarm's first tick: equal to the
-    plain machine; its device ms a launch (profiled, 200 launches), the
+def _machine_alone(machine: str, world, st0, run: dict,
+                   reps: int = 2000) -> dict:
+    """A machine kernel on a swarm's first tick: equal to the plain
+    machine; its device ms a launch (profiled, 200 launches), the
     wrapper's host us (the least of `reps` calls, not synchronised) and
     the plain machine's (the least of 20 calls) and ms by CUDA events;
     and its bounds (_machine_bound)."""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
-
-    state, tel = _machine_operands(world, st0)
-    assert_same(tb.behavior_step_kernel(state, tel, UL_PROFILE),
-                tb.behavior_step_plain(state, tel, UL_PROFILE),
-                "machine kernel on the swarm's first tick")
+    m = MACHINES[machine]
+    kernel, plain, cfg = m["kernel"], m["plain"], m["cfg"]
+    state, tel = _machine_operands(machine, world, st0, run)
+    assert_same(kernel(state, tel, cfg), plain(state, tel, cfg),
+                f"{machine} kernel on the swarm's first tick")
 
     def host_us(fn, n):
         best = math.inf
         for i in range(n):
             t0 = time.perf_counter()
-            fn(state, tel, UL_PROFILE)
+            fn(state, tel, cfg)
             best = min(best, time.perf_counter() - t0)
             if i % 100 == 99:
                 torch.cuda.synchronize()
         torch.cuda.synchronize()
         return best * 1e6
 
-    host_kernel = host_us(tb.behavior_step_kernel, reps)
-    host_plain = host_us(tb.behavior_step_plain, 20)
-    plain_ms = _time_call(lambda: tb.behavior_step_plain(state, tel,
-                                                         UL_PROFILE), 5)
-    busy = _profiled_busy(lambda: [tb.behavior_step_kernel(
-        state, tel, UL_PROFILE) for _ in range(200)], ("behavior_step",))
-    key = next(k for k in busy["kernel_device_ms"] if "behavior_step" in k)
+    host_kernel = host_us(kernel, reps)
+    host_plain = host_us(plain, 20)
+    plain_ms = _time_call(lambda: plain(state, tel, cfg), 5)
+    busy = _profiled_busy(lambda: [kernel(state, tel, cfg)
+                                   for _ in range(200)], (machine,))
+    key = next(k for k in busy["kernel_device_ms"]
+               if f"{machine}_kernel" in k)
     n = busy["kernel_launches"][key]
     return {"ms": busy["kernel_device_ms"][key] / n, "ms_profiled_launches": n,
             "host_us_kernel": host_kernel, "host_us_plain": host_plain,
             "plain_ms": plain_ms, "max_abs_err": 0,
-            **_machine_bound(tel, state, int(st0.x.shape[0]))}
+            **_machine_bound(machine, tel, state, int(st0.x.shape[0]))}
+
+
+def phase_swarm_cl_bench(device, smi: str, reps: int = 2, T: int = 100,
+                         B: int = 1024) -> dict:
+    """The clean machine's kernel on its main path: `reps` runs of
+    cl_swarm.rooms' job shape (sim_run(record=True) from
+    testdata.cl_swarm_start: B quads mid-hover, the cell's 1,024, T ticks
+    of 1 ms) with the launch counters cleared before them, one
+    behavior_step_cl launch a tick, every quad locked; the kernel's
+    device ms a launch from one more such run profiled.  Then the kernel on the first tick
+    against the plain path and its bounds (_machine_alone), beside its
+    build facts (registers, spills, SASS instructions, blocks per SM).
+    Returns the kernels line's entry."""
+    world, st0, run = testdata.cl_swarm_start(device, B)
+
+    def job():
+        fin, diag = sim.sim_run(st0, world, T, port.CL_PROFILE,
+                                record=True, **run)
+        torch.cuda.synchronize()
+        return diag
+
+    torch.cuda.synchronize()
+    obs.take()                            # count this path's runs only
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        diag = job()
+        secs.append(time.perf_counter() - t0)
+    n_launch = launch_counts()
+    check(n_launch["behavior_step_cl"] == T * reps,
+          f"the clean swarm launched the machine kernel "
+          f"{n_launch['behavior_step_cl']} times in {reps} runs of {T} "
+          f"ticks")
+    check(bool(diag["locked"][-1].all()), f"the clean swarm: "
+          f"{int(diag['locked'][-1].sum())} of {B} quads locked")
+    busy = _profiled_busy(job, ("behavior_step_cl",))
+    key = next(k for k in busy["kernel_device_ms"]
+               if "behavior_step_cl" in k)
+    alone = _machine_alone("behavior_step_cl", world, st0, run)
+    alone["ms_in_run"] = (busy["kernel_device_ms"][key]
+                          / busy["kernel_launches"][key])
+    alone["ms_in_run_profiled_launches"] = busy["kernel_launches"][key]
+    facts = BUILD_FACTS.get("replay_exact", {}).get(
+        "behavior_step_cl_kernel", {})
+    say("kernel_alone", kernel="behavior_step_cl", B=B, **alone,
+        launches_in_runs=n_launch["behavior_step_cl"], runs=reps, T=T,
+        run_seconds=secs, registers=facts.get("registers"),
+        spill_stores=facts.get("spill_stores"),
+        spill_loads=facts.get("spill_loads"),
+        blocks_per_sm=facts.get("blocks_per_sm"), card=smi)
+    return {"name": "behavior_step_cl", "route": "cuda",
+            **KERNELS["behavior_step_cl"],
+            "launches": n_launch["behavior_step_cl"], "max_abs_err": 0,
+            "ms": alone["ms_in_run"], "plain_ms": alone["plain_ms"],
+            "bound_ms": alone["bound_ms"], "bound_by": alone["bound_by"],
+            "library_ms": None}
 
 
 def phase_swarm_bench(device, smi: str, reps: int = 2) -> list:
@@ -2131,7 +2230,8 @@ def phase_swarm_bench(device, smi: str, reps: int = 2) -> list:
           f"map_step vs plain max abs err {alone['max_abs_err']}")
     say("kernel_alone", kernel="map_step", ms=ms,
         ms_profiled_launches=profiled, **alone, card=smi)
-    machine = _machine_alone(world, st0)
+    machine = _machine_alone("behavior_step", world, st0,
+                             testdata.SWARM_RUN)
     machine["ms_in_run"] = (busy["kernel_device_ms"][bkey]
                             / busy["kernel_launches"][bkey])
     say("kernel_alone", kernel="behavior_step", **machine, card=smi)
@@ -2625,11 +2725,10 @@ def phase_sharded(device, smi: str, swarm_ticks: int = 100, B: int = 1024,
 
 
 def phase_behavior_cl(device, B: int = 1024) -> None:
-    """The CL machine (models/behavior_cl.py, no kernel) on the card: B
-    quads on the committed fuzzed schedules (cl_fuzz_telemetry tiled),
-    every output of every tick equal to the same run on the CPU."""
-    from micro_quad_slam_tpu_torch.models import behavior_cl as bcl
-
+    """The CL machine (models/behavior_cl.py::behavior_step_cl: its kernel
+    on the card, its plain path on the CPU): B quads on the committed
+    fuzzed schedules (cl_fuzz_telemetry tiled), every output of every
+    tick equal to the same run on the CPU."""
     def run(dev):
         tm = testdata.cl_fuzz(B, dev)
         st = bcl.behavior_cl_init(B, dev)
@@ -2731,6 +2830,7 @@ def main() -> int:
     phase_carry_vs_plain(device)
     phase_ekf_vs_plain(device)
     phase_behavior_vs_plain(device)
+    phase_behavior_vs_plain(device, "behavior_step_cl")
     phase_kernel_vs_plain(device)
     phase_cone_kernel_vs_plain(device)
     phase_slam_kernels_vs_plain(device)
@@ -2756,7 +2856,8 @@ def main() -> int:
     phase_slam_bench(device, smi, "rt", 256)
     phase_ekf_bench(device, smi)
     kernels += [slam["match_lattice"], slam["replay_exact_snap"],
-                slam["ekf_replay"], *phase_swarm_bench(device, smi)]
+                slam["ekf_replay"], *phase_swarm_bench(device, smi),
+                phase_swarm_cl_bench(device, smi)]
     loaded = _jax_package_loaded()
     check(not loaded, f"the port imported jax or the JAX package: {loaded}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -85,14 +85,17 @@
 // replay_cone.cu): the replay's sequential carry (the EMA, origins,
 // recenter schedule and gates) that makes this kernel's schedule, and
 // mqs_ekf_replay (ekf.cuh): SLAM pass 0's EKF odometry and recenter
-// schedule, and the fusion replay; and mqs_behavior_step (behavior.cuh):
-// the closed-loop swarm's flight state machine, one launch a control tick.
+// schedule, and the fusion replay; and mqs_behavior_step (behavior.cuh)
+// and mqs_behavior_step_cl (behavior_cl.cuh): the closed-loop swarm's
+// flight state machines, the UL one and the clean one, one launch a
+// control tick.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "behavior.cuh"
+#include "behavior_cl.cuh"
 #include "carry.cuh"
 #include "ekf.cuh"
 #include "recenter.cuh"

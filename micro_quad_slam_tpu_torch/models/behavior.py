@@ -731,68 +731,91 @@ _TM_FIELDS = (
     ("takeoff_accept_ms", _I32), ("map_inited", _BOOL),
     ("frontier_f", _I32), ("frontier_r", _I32), ("frontier_l", _I32),
     ("frontier_b", _I32), ("tof_min", _FLT))
-# The kernel's output fields, in csrc/behavior.cuh's order: the state's
-# int32 and float32 fields and WORD_OUTPUTS (BehWordRow), the state's bool
-# fields and FLAG_OUTPUTS (BehFlagRow), then tof_filt and cmd [B, 4]; each
-# written through its own pointer.
-_INT_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _I32)
-_FLT_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _FLT)
-_BOOL_FIELDS = tuple(n for n, dt, _ in _STATE_FIELDS if dt == _BOOL)
+# The outputs both machines give beside their state, in the plain paths'
+# order, and the kernels' rows of them: the 32-bit ones (WORD_OUTPUTS)
+# and the bools (FLAG_OUTPUTS); cmd [B, 4] is a row of its own.
+OUTPUTS = ("cmd_kind", "cmd", "req_mode", "req_arm", "req_takeoff",
+           "rc_release", "clear_takeoff_ack", "map_init", "map_origin_x",
+           "map_origin_y")
 WORD_OUTPUTS = ("cmd_kind", "req_mode", "req_arm", "req_takeoff",
                 "map_origin_x", "map_origin_y")
 FLAG_OUTPUTS = ("rc_release", "clear_takeoff_ack", "map_init")
-_OUT_FIELDS = (_INT_FIELDS + _FLT_FIELDS + WORD_OUTPUTS + _BOOL_FIELDS
-               + FLAG_OUTPUTS + ("tof_filt", "cmd"))
-_OUT_DTYPES = {**{n: dt for n, dt, _ in _STATE_FIELDS},
-               **{n: _I32 for n in ("cmd_kind", "req_mode", "req_arm")},
-               **{n: _FLT for n in ("req_takeoff", "map_origin_x",
-                                    "map_origin_y", "tof_filt", "cmd")},
-               **{n: _BOOL for n in FLAG_OUTPUTS}}
-# The blocks the wrapper allocates a tick, by how long their fields live:
-# `st`, which sim_step's diagnostics keep every tick; the rest of what
-# sim_step(record=True) keeps of a tick; the rest, which the tick and the
-# next one read.  A kept tick so pins the bytes the plain path's separate
-# tensors did (45 a quad), and not the whole state's block (a block lives
-# as long as any view of it).  Each block holds its [B] 32-bit fields, its
-# [B, 4] fields, then (in a block of their own) its bool fields.
-_OUT_BLOCKS = (
-    ("st",),
-    ("kf", "cmd_kind", "req_mode", "req_arm", "alt_est", "req_takeoff",
-     "cmd", "rc_release"))
-_OUT_BLOCKS += (tuple(n for n in _OUT_FIELDS
-                      if not any(n in b for b in _OUT_BLOCKS)),)
-_QUADS = ("tof_filt", "cmd")
-# each block's (int32 [B], float32 [B], float32 [B, 4], bool [B]) fields
-_OUT_PLAN = tuple(
-    (tuple(n for n in b if _OUT_DTYPES[n] == _I32),
-     tuple(n for n in b if _OUT_DTYPES[n] == _FLT and n not in _QUADS),
-     tuple(n for n in b if n in _QUADS),
-     tuple(n for n in b if _OUT_DTYPES[n] == _BOOL)) for b in _OUT_BLOCKS)
-# the kernel's operands in its order: the telemetry, then the state
-_IN_NAMES = tuple(n for n, _ in _TM_FIELDS) + BehaviorState._fields
-_IN_DTYPES = ([dt for _, dt in _TM_FIELDS]
-              + [dt for _, dt, _ in _STATE_FIELDS] + [_FLT])
-_IN_SIZES = [dt.itemsize for dt in _IN_DTYPES]
+# the health bit fields, int32 or int64 (the golden model's uint32
+# widened): the tested bits lie in the low word
+_BIT_FIELDS = ("sys_health", "sys_enabled")
 
 
-def _out_offsets() -> list:
-    """Where each output field lies, in the kernel's order: (its
-    allocation, its offset in bytes / B).  Block k's 32-bit words (ints,
-    floats, quads) are allocation 2k, its bools 2k + 1."""
+class MachineKernel(NamedTuple):
+    """A flight state machine's kernel as launch_machine packs its
+    operands and unpacks its outputs, derived from the machine's tables by
+    machine_kernel.  The operands are the telemetry fields (tm_names,
+    tof_min [B, 4] last) and the state's fields (tof_filt [B, 4] last),
+    one pointer and one byte stride each; the outputs are word_rows (the
+    state's int32 and float32 fields, then WORD_OUTPUTS), flag_rows (its
+    bool fields, then FLAG_OUTPUTS), then tof_filt and cmd [B, 4], one
+    pointer each, laid out in blocks by how long they live (plan,
+    out_at)."""
+
+    entry: str               # the C entry (ops/_build.py::ENTRIES)
+    state: type              # the state NamedTuple
+    tm_names: tuple
+    in_dtypes: list          # the operands' dtypes: telemetry, then state
+    in_sizes: list
+    word_rows: tuple
+    flag_rows: tuple
+    blocks: tuple            # the output fields by block
+    plan: tuple              # each block's (int32, float32, [B, 4], bool)
+    out_at: list             # each output's (allocation, offset / B)
+    outputs: tuple           # (output key, field): the plain path's dict
+    config: object           # cfg -> ({name: float}, {name: int})
+    arrays: tuple            # ctypes types: pointers in, strides, out
+
+
+def machine_kernel(entry: str, state: type, state_fields: list,
+                   tm_fields: tuple, kept: tuple, outputs: tuple,
+                   config) -> MachineKernel:
+    """The MachineKernel of a machine: its C entry, state NamedTuple and
+    _STATE_FIELDS table, its telemetry fields [(name, dtype)], the output
+    blocks that callers keep (each a tuple of output fields; every other
+    field goes into one more block), its outputs beyond OUTPUTS as
+    (output key, field), and its kernel_config."""
+    ints = tuple(n for n, dt, _ in state_fields if dt == _I32)
+    floats = tuple(n for n, dt, _ in state_fields if dt == _FLT)
+    bools = tuple(n for n, dt, _ in state_fields if dt == _BOOL)
+    word_rows = ints + floats + WORD_OUTPUTS
+    flag_rows = bools + FLAG_OUTPUTS
+    out_fields = word_rows + flag_rows + ("tof_filt", "cmd")
+    dtypes = {**{n: dt for n, dt, _ in state_fields},
+              **{n: _I32 for n in ("cmd_kind", "req_mode", "req_arm")},
+              **{n: _FLT for n in ("req_takeoff", "map_origin_x",
+                                   "map_origin_y", "tof_filt", "cmd")},
+              **{n: _BOOL for n in FLAG_OUTPUTS}}
+    blocks = kept + (tuple(n for n in out_fields
+                           if not any(n in b for b in kept)),)
+    quads = ("tof_filt", "cmd")
+    plan = tuple(
+        (tuple(n for n in b if dtypes[n] == _I32),
+         tuple(n for n in b if dtypes[n] == _FLT and n not in quads),
+         tuple(n for n in b if n in quads),
+         tuple(n for n in b if dtypes[n] == _BOOL)) for b in blocks)
+    # block k's 32-bit words (ints, floats, quads) are allocation 2k, its
+    # bools 2k + 1
     at = {}
-    for k, (ints, floats, quads, flags) in enumerate(_OUT_PLAN):
-        at.update({n: (2 * k, 4 * j) for j, n in enumerate(ints + floats)})
-        at.update({n: (2 * k, 4 * (len(ints) + len(floats) + 4 * j))
-                   for j, n in enumerate(quads)})
+    for k, (i32, f32, q, flags) in enumerate(plan):
+        at.update({n: (2 * k, 4 * j) for j, n in enumerate(i32 + f32)})
+        at.update({n: (2 * k, 4 * (len(i32) + len(f32) + 4 * j))
+                   for j, n in enumerate(q)})
         at.update({n: (2 * k + 1, j) for j, n in enumerate(flags)})
-    return [at[n] for n in _OUT_FIELDS]
-
-
-_OUT_AT = _out_offsets()
-# the host arrays of pointers and strides the launch passes
-_IN_PTRS = ctypes.c_void_p * len(_IN_NAMES)
-_IN_STRIDES = ctypes.c_int * (len(_IN_NAMES) + 2)
-_OUT_PTRS = ctypes.c_void_p * len(_OUT_FIELDS)
+    in_dtypes = ([dt for _, dt in tm_fields]
+                 + [dt for _, dt, _ in state_fields] + [_FLT])
+    return MachineKernel(
+        entry, state, tuple(n for n, _ in tm_fields), in_dtypes,
+        [dt.itemsize for dt in in_dtypes], word_rows, flag_rows, blocks,
+        plan, [at[n] for n in out_fields],
+        tuple((n, n) for n in OUTPUTS) + outputs, config,
+        (ctypes.c_void_p * len(in_dtypes),
+         ctypes.c_int * (len(in_dtypes) + 2),
+         ctypes.c_void_p * len(out_fields)))
 
 
 def kernel_config(cfg: PipelineConfig) -> tuple:
@@ -844,74 +867,89 @@ def kernel_config(cfg: PipelineConfig) -> tuple:
     return floats, ints
 
 
-_CONFIG_ARRAYS: dict = {}     # id(cfg) -> (cfg, float array, int array)
+# The UL machine's kernel.  Its kept blocks: `st`, which sim_step's
+# diagnostics keep every tick; the rest of what sim_step(record=True)
+# keeps of a tick.  A kept tick so pins the bytes the plain path's
+# separate tensors did (45 a quad), and not the whole state's block (a
+# block lives as long as any view of it).
+UL_KERNEL = machine_kernel(
+    "mqs_behavior_step", BehaviorState, _STATE_FIELDS, _TM_FIELDS,
+    kept=(("st",), ("kf", "cmd_kind", "req_mode", "req_arm", "alt_est",
+                    "req_takeoff", "cmd", "rc_release")),
+    outputs=(("state", "st"), ("kf_flags", "kf"), ("alt_est", "alt_est"),
+             ("alt_src", "alt_src"), ("ceiling", "ceiling")),
+    config=kernel_config)
+
+_CONFIG_ARRAYS: dict = {}   # (entry, id(cfg)) -> (cfg, floats, ints)
 
 
-def _config_arrays(cfg: PipelineConfig) -> tuple:
-    """kernel_config(cfg) as the ctypes arrays the launch passes, made once
-    a configuration."""
-    hit = _CONFIG_ARRAYS.get(id(cfg))
+def _config_arrays(k: MachineKernel, cfg: PipelineConfig) -> tuple:
+    """k.config(cfg) as the ctypes arrays the launch passes, made once a
+    machine and configuration."""
+    key = (k.entry, id(cfg))
+    hit = _CONFIG_ARRAYS.get(key)
     if hit is None or hit[0] is not cfg:
-        floats, ints = kernel_config(cfg)
+        floats, ints = k.config(cfg)
         hit = (cfg, (ctypes.c_float * len(floats))(*floats.values()),
                (ctypes.c_int * len(ints))(*ints.values()))
-        _CONFIG_ARRAYS[id(cfg)] = hit
+        _CONFIG_ARRAYS[key] = hit
     return hit[1], hit[2]
 
 
-def _refuse(vals: list, shapes: list, dev) -> None:
+def _refuse(k: MachineKernel, vals: list, shapes: list, dev) -> None:
     """Raise ValueError on the first operand the kernel does not take: a
-    tensor on another device, of another dtype (sys_health may also be
-    int64) or shape."""
-    for name, v, dtype, shape in zip(_IN_NAMES, vals, _IN_DTYPES, shapes):
+    tensor on another device, of another dtype (a health bit field may
+    also be int64) or shape."""
+    names = k.tm_names + k.state._fields
+    for name, v, dtype, shape in zip(names, vals, k.in_dtypes, shapes):
         if not isinstance(v, torch.Tensor) or v.device != dev:
-            raise ValueError(f"behavior kernel: {name} must be a tensor on "
-                             f"{dev}")
-        if v.dtype != dtype and not (name == "sys_health"
+            raise ValueError(f"{k.entry}: {name} must be a tensor on {dev}")
+        if v.dtype != dtype and not (name in _BIT_FIELDS
                                      and v.dtype == torch.int64):
-            raise ValueError(f"behavior kernel: {name} must be {dtype}, "
-                             f"not {v.dtype}")
+            raise ValueError(f"{k.entry}: {name} must be {dtype}, not "
+                             f"{v.dtype}")
         if v.shape != shape:
-            raise ValueError(f"behavior kernel: {name} must have shape "
+            raise ValueError(f"{k.entry}: {name} must have shape "
                              f"{tuple(shape)}, not {tuple(v.shape)}")
 
 
-def behavior_step_kernel(state: BehaviorState, tm: dict,
-                         cfg: PipelineConfig = UL_PROFILE):
-    """behavior_step_plain's (state, outputs) from one launch of the
-    machine's kernel (csrc/behavior.cuh; ops/_build.py::ENTRIES names its
-    library), on CUDA tensors; bit-equal to behavior_step_plain on the
-    card.  The telemetry fields are read as they are, strided or
-    broadcast (stride 0), each [B] (tof_min [B, 4]) with _TM_FIELDS'
-    dtype; the new state and the outputs are views of a few blocks
-    (_OUT_BLOCKS).  Raises ValueError on operands it does not take and
-    RuntimeError on a failed launch.  Each launch counts in
-    launches.behavior_step (utils/obs.py)."""
+def launch_machine(k: MachineKernel, state, tm: dict, cfg: PipelineConfig):
+    """The machine's (state, outputs) from one launch of its kernel k on
+    CUDA tensors.  The telemetry fields are read as they are, strided or
+    broadcast (stride 0), each [B] (tof_min [B, 4]) with k's dtype; the
+    new state and the outputs are views of a few blocks (k.blocks).
+    Raises ValueError on operands the kernel does not take (their device,
+    dtype or shape, then anything off a CUDA device) and RuntimeError on a
+    failed launch.  Each launch counts in launches.<entry less mqs_>
+    (utils/obs.py)."""
     t = tm["t_ms"]
     dev = t.device
-    if t.dim() != 1 or dev.type != "cuda":
-        raise ValueError(f"behavior kernel: t_ms must be [B] on a CUDA "
-                         f"device, not {tuple(t.shape)} on {dev}")
+    if t.dim() != 1:
+        raise ValueError(f"{k.entry}: t_ms must be [B], not "
+                         f"{tuple(t.shape)}")
     B = t.shape[0]
     row, quad = torch.Size((B,)), torch.Size((B, 4))
-    vals = [tm[name] for name, _ in _TM_FIELDS]
+    vals = [tm[name] for name in k.tm_names]
     vals += state
-    shapes = [row] * (len(_TM_FIELDS) - 1) + [quad] + [row] * (
+    shapes = [row] * (len(k.tm_names) - 1) + [quad] + [row] * (
         len(state) - 1) + [quad]
     # the common case in one pass a property; _refuse says what is wrong
-    sizes = _IN_SIZES
-    if ([v.dtype for v in vals] != _IN_DTYPES
+    sizes = k.in_sizes
+    if ([v.dtype for v in vals] != k.in_dtypes
             or [v.get_device() for v in vals] != [dev.index] * len(vals)
             or [v.shape for v in vals] != shapes):
-        _refuse(vals, shapes, dev)
+        _refuse(k, vals, shapes, dev)
         sizes = [v.element_size() for v in vals]
+    if dev.type != "cuda":
+        raise ValueError(f"{k.entry}: the operands must be on a CUDA "
+                         f"device, not {dev}")
     ptrs = array.array("Q", [v.data_ptr() for v in vals])
     strides = array.array("i", [v.stride()[0] * n
                                 for v, n in zip(vals, sizes)])
     strides.append(tm["tof_min"].stride(1) * 4)
     strides.append(state.tof_filt.stride(1) * 4)
     view, base = {}, []
-    for ints, floats, quads, flags in _OUT_PLAN:
+    for ints, floats, quads, flags in k.plan:
         ni, nf = len(ints), len(floats)
         w = torch.empty((ni + nf + 4 * len(quads)) * B, dtype=_I32,
                         device=dev)
@@ -930,20 +968,23 @@ def behavior_step_kernel(state: BehaviorState, tm: dict,
         else:
             base.append(0)
     if B:
-        fcfg, icfg = _config_arrays(cfg)
-        outs = array.array("Q", [base[k] + c * B for k, c in _OUT_AT])
-        _build.launch(None, "mqs_behavior_step", dev,
-                      _IN_PTRS.from_buffer(ptrs),
-                      _IN_STRIDES.from_buffer(strides),
-                      _OUT_PTRS.from_buffer(outs), B, fcfg, icfg)
-    S = {name: view[name] for name in BehaviorState._fields}
-    O = {name: view[name] for name in (
-        "cmd_kind", "cmd", "req_mode", "req_arm", "req_takeoff",
-        "rc_release", "clear_takeoff_ack", "map_init", "map_origin_x",
-        "map_origin_y")}
-    O.update(state=view["st"], kf_flags=view["kf"], alt_est=view["alt_est"],
-             alt_src=view["alt_src"], ceiling=view["ceiling"])
-    return BehaviorState(**S), O
+        fcfg, icfg = _config_arrays(k, cfg)
+        outs = array.array("Q", [base[j] + c * B for j, c in k.out_at])
+        ptrs_t, strides_t, outs_t = k.arrays
+        _build.launch(None, k.entry, dev, ptrs_t.from_buffer(ptrs),
+                      strides_t.from_buffer(strides),
+                      outs_t.from_buffer(outs), B, fcfg, icfg)
+    new = k.state(**{name: view[name] for name in k.state._fields})
+    return new, {key: view[name] for key, name in k.outputs}
+
+
+def behavior_step_kernel(state: BehaviorState, tm: dict,
+                         cfg: PipelineConfig = UL_PROFILE):
+    """behavior_step_plain's (state, outputs) from one launch of the
+    machine's kernel (csrc/behavior.cuh; ops/_build.py::ENTRIES names its
+    library), on CUDA tensors; bit-equal to behavior_step_plain on the
+    card (launch_machine, UL_KERNEL: counted in launches.behavior_step)."""
+    return launch_machine(UL_KERNEL, state, tm, cfg)
 
 
 def drain_kf(state: BehaviorState):

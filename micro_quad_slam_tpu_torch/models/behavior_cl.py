@@ -14,10 +14,15 @@ over the [B] batch, every timer an int32 ms tensor.  Its float
 arithmetic rounds as the golden model's does, on the CPU and the card
 alike (ops/raycast.py::div_f32).
 
-No simulator path drives this machine, in either package: the swarm
-flies the UL machine under every profile.  Telemetry is a dict of [B]
-tensors with the golden model's Telemetry field names (tof_min [B, 4]);
-`sys_health` and `sys_enabled` are integer tensors (int32 or int64).
+The swarm flies it from sim_init(machine="cl") (models/simulator.py).
+Telemetry is a dict of [B] tensors with the golden model's Telemetry
+field names (tof_min [B, 4]); `sys_health` and `sys_enabled` are integer
+tensors (int32 or int64).
+
+On a CUDA device the tick is one launch of csrc/behavior_cl.cuh's kernel
+(`behavior_step_cl_kernel`: one thread per quad); anywhere else it is the
+plain torch path (`behavior_step_cl_plain`), the kernel's twin in the
+card tests.
 """
 
 from __future__ import annotations
@@ -42,7 +47,12 @@ from micro_quad_slam_tpu_torch.models.behavior import (
     SENSOR_MOTOR_OUTPUTS,
     SENSOR_XY_POSITION_CONTROL,
     SENSOR_Z_ALTITUDE_CONTROL,
+    _BOOL,
+    _FLT,
+    _I32,
     _f,
+    launch_machine,
+    machine_kernel,
 )
 from micro_quad_slam_tpu_torch.ops.raycast import div_f32
 from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, PipelineConfig
@@ -55,7 +65,6 @@ CMD_Z_YAW = 6
 CL_KF_TAKEOFF, CL_KF_LAND_START, CL_KF_LIFTOFF_AST = 1, 2, 4
 CL_KF_BATT_LAND, CL_KF_BATT_EMERG = 8, 16
 
-_I32, _BOOL, _FLT = torch.int32, torch.bool, torch.float32
 _STATE_FIELDS = [
     ("st", _I32, 0), ("yaw_tv", _BOOL, False), ("yaw_t", _FLT, 0.0),
     ("alt_max", _FLT, np.nan), ("alt_est", _FLT, np.nan),
@@ -146,7 +155,18 @@ def behavior_step_cl(state: BehaviorClState, tm: dict,
                      cfg: PipelineConfig = CL_PROFILE):
     """One CL control tick for the whole batch.  tm: dict of [B] tensors
     with the golden Telemetry fields (tof_min [B, 4]).  Returns
-    (BehaviorClState, outputs dict)."""
+    (BehaviorClState, outputs dict).  On a CUDA device one launch of the
+    machine's kernel (behavior_step_cl_kernel), anywhere else the plain
+    torch path (behavior_step_cl_plain)."""
+    run = (behavior_step_cl_kernel if state.st.is_cuda
+           else behavior_step_cl_plain)
+    return run(state, tm, cfg)
+
+
+def behavior_step_cl_plain(state: BehaviorClState, tm: dict,
+                           cfg: PipelineConfig = CL_PROFILE):
+    """behavior_step_cl as [B]-wide torch ops, on any device: the kernel's
+    twin on the card."""
     bh = cfg.behavior
     bt = cfg.battery
     W = torch.where
@@ -617,3 +637,91 @@ def behavior_step_cl(state: BehaviorClState, tm: dict,
     for k in ("alt_est", "alt_max", "alt_src", "ceiling"):
         O[k] = S[k]
     return new_state, O
+
+
+# The telemetry fields the tick reads, in csrc/behavior_cl.cuh's BehTm
+# order, with the dtype the kernel takes (sys_health and sys_enabled also
+# int64); tof_min [B, 4] last.
+_TM_FIELDS = (
+    ("t_ms", _I32), ("have_fc", _BOOL), ("fc_armed", _BOOL),
+    ("hb_custom_mode", _I32), ("have_ext", _BOOL), ("landed_state", _I32),
+    ("have_sys", _BOOL), ("sys_last_ms", _I32), ("sys_health", _I32),
+    ("sys_enabled", _I32), ("have_servo", _BOOL), ("servo_last_ms", _I32),
+    ("motor_avg", _FLT), ("batt_vpc", _FLT), ("batt_valid", _BOOL),
+    ("have_lpos", _BOOL), ("lpos_last_ms", _I32), ("lpos_x", _FLT),
+    ("lpos_y", _FLT), ("lpos_alt_filt", _FLT), ("have_att", _BOOL),
+    ("yaw_deg", _FLT), ("have_of", _BOOL), ("of_last_ms", _I32),
+    ("of_q", _I32), ("have_rf", _BOOL), ("rf_last_ms", _I32),
+    ("rf_m", _FLT), ("want_arm", _BOOL), ("tof_min", _FLT))
+
+
+def kernel_config_cl(cfg: PipelineConfig) -> tuple:
+    """The configuration the clean tick reads, as its kernel takes it:
+    ({name: float} in csrc/behavior_cl.cuh's BehCfgFloat order, each
+    rounded to float32 as behavior_step_cl_plain rounds it, the derived
+    ones in its float32 arithmetic; {name: int} in BehCfgInt's order)."""
+    bh, bt, g = cfg.behavior, cfg.battery, cfg.gates
+    ceil = _F32(g.ceil_m)
+    floats = {
+        "xy_min_alt_m": _f(g.xy_min_alt_m),
+        "ceil_m": _f(ceil),
+        "ceil_release_m": _f(ceil - _F32(g.ceil_release_margin_m)),
+        "filt_alpha": _f(cfg.tof.filt_alpha),
+        "filt_keep": _f(_F32(1.0) - _F32(cfg.tof.filt_alpha)),
+        "arm_min_vpc": _f(bt.arm_min_vpc),
+        "emerg_vpc": _f(bt.emerg_vpc),
+        "land_vpc": _f(bt.land_vpc),
+        "hover_z": _f(-np.minimum(_F32(bh.hover_target_m),
+                                  np.maximum(ceil - _F32(0.05),
+                                             _F32(0.10)))),
+        "hover_capture_min_alt_m": _f(bh.hover_capture_min_alt_m),
+        "takeoff_target_m": _f(bh.takeoff_target_m),
+        "takeoff_mot_start_us": _f(bh.takeoff_mot_start_us),
+        "takeoff_inferred_us": _f(_F32(bh.takeoff_mot_start_us)
+                                  + _F32(150)),
+        **{k: _f(float(getattr(bh, k))) for k in (
+            "ramp_total_ms", "ramp_thr_min", "ramp_thr_max",
+            "thrust_clamp")},
+        "takeoff_at_alt_m": _f(_F32(bh.takeoff_target_m)
+                               - _F32(bh.takeoff_exit_margin_m)),
+        **{k: _f(float(getattr(bh, k))) for k in (
+            "assist_total_ms", "assist_thr_us_min", "assist_thr_us_max",
+            "assist_motor_delta_min", "landing_descent_mps")},
+    }
+    ints = {
+        "of_min_quality": g.of_min_quality,
+        "xy_stable_hold_ms": g.xy_stable_hold_ms,
+        "low_hold_ms": bt.low_hold_ms,
+        **{k: getattr(bh, k) for k in (
+            "prearm_stable_ms", "stale_fail_ticks", "takeoff_no_vel_ms",
+            "takeoff_stall_ms", "assist_send_period_ms",
+            "assist_override_effect_ms", "assist_abort_ms")},
+    }
+    return floats, ints
+
+
+# The clean machine's kernel.  Its kept blocks: `st` and the hover lock,
+# which sim_step's diagnostics keep every tick (`state`, `locked`); the
+# rest of what sim_step(record=True) keeps of a tick.  A kept tick so pins
+# the bytes the plain path's separate tensors did, and not the whole
+# state's block.
+CL_KERNEL = machine_kernel(
+    "mqs_behavior_step_cl", BehaviorClState, _STATE_FIELDS, _TM_FIELDS,
+    kept=(("st", "hv_locked"),
+          ("kf", "cmd_kind", "req_mode", "req_arm", "alt_est",
+           "req_takeoff", "cmd", "rc_release")),
+    outputs=(("state", "st"), ("kf_flags", "kf"), ("alt_est", "alt_est"),
+             ("alt_max", "alt_max"), ("alt_src", "alt_src"),
+             ("ceiling", "ceiling")),
+    config=kernel_config_cl)
+
+
+def behavior_step_cl_kernel(state: BehaviorClState, tm: dict,
+                            cfg: PipelineConfig = CL_PROFILE):
+    """behavior_step_cl_plain's (state, outputs) from one launch of the
+    clean machine's kernel (csrc/behavior_cl.cuh; ops/_build.py::ENTRIES
+    names its library), on CUDA tensors; bit-equal to
+    behavior_step_cl_plain on the card (models/behavior.py::
+    launch_machine with CL_KERNEL: ValueError on operands it does not
+    take, counted in launches.behavior_step_cl)."""
+    return launch_machine(CL_KERNEL, state, tm, cfg)

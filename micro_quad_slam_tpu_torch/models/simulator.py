@@ -42,9 +42,11 @@ host: the scan branch and the frontier refresh run only on scan ticks, by
 a Python `if`, where the JAX module selects with lax.cond.  A scan tick's
 map update is ops/residentx.map_step: the map-step kernel on a CUDA
 device, its plain version on the CPU.  Every UL tick's behaviour step is
-models/behavior.py::behavior_step: one launch of the machine's kernel on
-a CUDA device, its plain torch path on the CPU; a clean tick's is
-models/behavior_cl.py::behavior_step_cl, torch on either.
+models/behavior.py::behavior_step: one launch of the machine's kernel
+(csrc/behavior.cuh) on a CUDA device, its plain torch path on the CPU; a
+clean tick's is models/behavior_cl.py::behavior_step_cl: one launch of
+the clean machine's kernel (csrc/behavior_cl.cuh) on a CUDA device, its
+plain torch path (behavior_step_cl_plain) on the CPU.
 
 Randomness.  The JAX module draws from jax.random; this one from an
 explicit CPU torch.Generator that the state carries in place of the key

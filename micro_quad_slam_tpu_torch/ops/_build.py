@@ -40,7 +40,8 @@ BUILD_DIR = CSRC.parents[1] / "build" / "torch_kernels"
 # ops/conemode.py); it also spells each rounding out with __fmul_rn /
 # __fadd_rn.  The carry kernel (carry.cuh, in both replay libraries) does
 # the same for the ToF filter and the origins, the EKF replay (ekf.cuh)
-# and the flight state machine (behavior.cuh) for all of their float work.
+# and the flight state machines (behavior.cuh, behavior_cl.cuh) for all of
+# their float work.
 # replay_exact.cu's own kernels do integer work only.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -67,7 +68,8 @@ _PTRS, _BLOCKS = ctypes.POINTER(ctypes.c_void_p), _INTS
 # occupancy calculator's blocks per SM through their last argument.  The
 # carry (csrc/carry.cuh) is compiled into both replay libraries, so that a
 # mapping replay builds one library; the EKF replay (csrc/ekf.cuh) and the
-# flight state machine (csrc/behavior.cuh) into replay_exact.  Host arrays
+# flight state machines (csrc/behavior.cuh, csrc/behavior_cl.cuh) into
+# replay_exact.  Host arrays
 # (_FLOATS, _INTS, _PTRS) are copied into the kernel's parameters.
 ENTRIES = {
     "mqs_carry": Entry(
@@ -86,6 +88,8 @@ ENTRIES = {
         + (_F,) * 5 + (_I,) + (_F,) * 4 + (_D, _I, _P)),
     "mqs_behavior_step": Entry(
         ("replay_exact",), (_PTRS, _INTS, _PTRS, _I, _FLOATS, _INTS, _P)),
+    "mqs_behavior_step_cl": Entry(
+        ("replay_exact",), (_PTRS, _INTS, _PTRS, _I, _FLOATS, _INTS, _P)),
     "mqs_replay_cone": Entry(
         ("replay_cone",), (_P,) * 3 + (_I,) * 15 + (_F,) * 5 + (_P,)),
     "mqs_match_lattice": Entry(
@@ -95,6 +99,8 @@ ENTRIES = {
     "mqs_replay_exact_blocks_per_sm": Entry(("replay_exact",), (_I, _BLOCKS)),
     "mqs_ekf_replay_blocks_per_sm": Entry(("replay_exact",), (_BLOCKS,)),
     "mqs_behavior_step_blocks_per_sm": Entry(("replay_exact",), (_BLOCKS,)),
+    "mqs_behavior_step_cl_blocks_per_sm": Entry(
+        ("replay_exact",), (_BLOCKS,)),
     "mqs_replay_cone_blocks_per_sm": Entry(("replay_cone",), (_I, _BLOCKS)),
     "mqs_match_lattice_blocks_per_sm": Entry(
         ("match_lattice",), (_I, _BLOCKS)),

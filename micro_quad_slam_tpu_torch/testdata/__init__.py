@@ -77,6 +77,12 @@ Beside the flights, reference results of the JAX package's replay
                            liftoff assist, hover, explore, turning,
                            landing, disarming), 1,100 ticks: each
                            Telemetry field [1100, 4]
+    cl_scenario_telemetry  the telemetry of the golden CL machine's runs
+                           on tests/test_torch_behavior_cl.py's 15
+                           scenarios (seeds 31-36 and 41-49: arming,
+                           takeoff, the ramp, liftoff assist, hover with
+                           the lock, landing, disarming), 1,100 ticks:
+                           each Telemetry field [1100, 15]
     swarm_small_jax        its closed-loop simulator on bench.py's swarm
                            configuration (bench.py:45-81) cut to B=8:
                            the start state sim_init(8, PRNGKey(0),
@@ -116,7 +122,7 @@ NAMES = ("random_flights", "golden_hover", "golden_line_recenter",
 REFERENCES = ("hybrid_random_flights", "hybrid_bench_sums", "slam_bench_ref",
               "slam_stages", "swarm_small_jax", "swarm_bench_ref",
               "wire_ref", "slam_fb_ref", "cl_fuzz_telemetry",
-              "ul_scenario_telemetry")
+              "ul_scenario_telemetry", "cl_scenario_telemetry")
 
 # bench.py's swarm workload (bench.py:45-81): world, start and run
 SWARM_WORLD = {"room": (-3.5, -3.5, 3.5, 3.5),
@@ -125,6 +131,8 @@ SWARM_RUN = {"dt_ms": 1, "scan_period_ms": 100}
 SWARM_T, SWARM_B = 1000, 1024
 # the CL machine's fuzzed schedules kept in cl_fuzz_telemetry
 CL_FUZZ_SEEDS, CL_FUZZ_TICKS = 32, 700
+# the ticks of the CL machine's scenarios kept in cl_scenario_telemetry
+CL_SCENARIO_TICKS = 1100
 
 
 def path(name: str) -> str:
@@ -433,19 +441,22 @@ def ul_scenarios(B: int, device=None) -> dict:
     return _tiled("ul_scenario_telemetry", B, device)
 
 
-def cl_swarm(device=None, B: int = 64, T: int = 100,
-             airborne: bool = True) -> dict:
+def cl_scenarios(B: int, device=None) -> dict:
+    """cl_scenario_telemetry's 15 scenarios tiled to B quads, as [T, B]
+    tensors on `device` for the CL machine's step (_tiled)."""
+    return _tiled("cl_scenario_telemetry", B, device)
+
+
+def cl_swarm_start(device=None, B: int = 64, airborne: bool = True):
     """The swarm flying the clean machine (sim_init(machine="cl")) on
     `device`: B quads from sim_init's seeded spread (seed 7, 0.5 m) in the
-    CLI's 7 m room with its box.  Airborne: cl_swarm.rooms' start, T ticks
+    CLI's 7 m room with its box.  Airborne: cl_swarm.rooms' start, ticks
     of 1 ms from the clock at 1 s, the XY hold stamped at 50 ms (locked at
-    the 51st tick); else on the ground, T ticks of 20 ms through arming,
-    takeoff and the hover lock.  Per quad-tick [T, B] the state, the
-    command's kind and values [T, B, 4], the hover lock and the EKF
-    position, and the final true pose, as numpy."""
+    the 51st tick); else on the ground, ticks of 20 ms through arming,
+    takeoff and the hover lock.  Returns (world, state, sim_step's
+    keyword arguments)."""
     from micro_quad_slam_tpu_torch.models.simulator import (
-        make_world, sim_init, sim_run)
-    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE
+        make_world, sim_init)
     from micro_quad_slam_tpu_torch.utils.device import as_device
 
     device = as_device(device)
@@ -454,8 +465,20 @@ def cl_swarm(device=None, B: int = 64, T: int = 100,
     st = sim_init(B, 7, spread_m=0.5, airborne=airborne, device=device,
                   t0_ms=999 if airborne else 0, machine="cl",
                   xy_stamp_ms=50)
-    fin, d = sim_run(st, world, T, CL_PROFILE, dt_ms=1 if airborne else 20,
-                     record=True)
+    return world, st, {"dt_ms": 1 if airborne else 20}
+
+
+def cl_swarm(device=None, B: int = 64, T: int = 100,
+             airborne: bool = True) -> dict:
+    """T ticks of the swarm flying the clean machine from cl_swarm_start:
+    per quad-tick [T, B] the state, the command's kind and values
+    [T, B, 4], the hover lock and the EKF position, and the final true
+    pose, as numpy."""
+    from micro_quad_slam_tpu_torch.models.simulator import sim_run
+    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE
+
+    world, st, run = cl_swarm_start(device, B, airborne)
+    fin, d = sim_run(st, world, T, CL_PROFILE, record=True, **run)
     out = {k: d[k] for k in ("state", "cmd_kind", "cmd", "locked", "est_x",
                              "est_y")}
     out.update(x=fin.x, y=fin.y, yaw=fin.yaw)

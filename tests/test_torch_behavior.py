@@ -18,7 +18,9 @@ import torch
 from fc_mock import Scenario, run_scenario
 from micro_quad_slam_tpu.models import behavior as jb
 from micro_quad_slam_tpu.utils.config import UL_PROFILE as JAX_UL
+from micro_quad_slam_tpu_torch import testdata
 from micro_quad_slam_tpu_torch.models import behavior as tb
+from micro_quad_slam_tpu_torch.models import behavior_cl as bcl
 from micro_quad_slam_tpu_torch.utils import obs
 from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
 from test_behavior import telems_to_arrays
@@ -177,6 +179,105 @@ def test_kernel_config_packs_each_value_as_plain_rounds_it(make):
         want = flags[name] if name in flags else getattr(group, name)
         assert v == want and isinstance(v, int), name
     assert len(floats) == 32 and len(ints) == 19
+
+
+@pytest.mark.parametrize("make", [lambda: CL_PROFILE, lambda: UL_PROFILE],
+                         ids=["cl", "ul"])
+def test_kernel_config_cl_packs_each_value_as_plain_rounds_it(make):
+    """The clean machine kernel's configuration
+    (behavior_cl.kernel_config_cl): each float the `_f` of its field, the
+    derived ones rounded as behavior_step_cl_plain computes them in
+    float32 (the hover target's NED z, the takeoff inference's motor
+    threshold, the two thresholds it subtracts), the ints as they are."""
+    cfg = make()
+    bh, bt, g = cfg.behavior, cfg.battery, cfg.gates
+    f32 = np.float32
+    ceil = f32(g.ceil_m)
+    floats, ints = bcl.kernel_config_cl(cfg)
+    derived = {
+        "ceil_release_m": tb._f(ceil - f32(g.ceil_release_margin_m)),
+        "filt_alpha": tb._f(cfg.tof.filt_alpha),
+        "filt_keep": tb._f(f32(1.0) - f32(cfg.tof.filt_alpha)),
+        "hover_z": tb._f(-np.minimum(f32(bh.hover_target_m),
+                                     np.maximum(ceil - f32(0.05),
+                                                f32(0.10)))),
+        "takeoff_inferred_us": tb._f(f32(bh.takeoff_mot_start_us)
+                                     + f32(150)),
+        "takeoff_at_alt_m": tb._f(f32(bh.takeoff_target_m)
+                                  - f32(bh.takeoff_exit_margin_m))}
+    for name, v in floats.items():
+        if name in derived:
+            want = derived[name]
+        else:
+            group = next(x for x in (bh, bt, g) if hasattr(x, name))
+            want = tb._f(getattr(group, name))
+        assert v == want and np.float32(v) == v, name
+    for name, v in ints.items():
+        group = next(x for x in (bh, bt, g) if hasattr(x, name))
+        assert v == getattr(group, name) and isinstance(v, int), name
+    assert len(floats) == 23 and len(ints) == 10
+
+
+def test_behavior_step_cl_on_cpu_tensors_runs_the_plain_path():
+    """On CPU tensors behavior_step_cl is behavior_step_cl_plain: no launch
+    of the clean machine's kernel and the same state and outputs, tick for
+    tick, over the first 200 ticks of the committed scenarios (arming,
+    the ramp, Z+yaw and the position hold), whose Z+yaw and hold commands
+    carry the kernel configuration's hover_z."""
+    seq = testdata.cl_scenarios(15, "cpu")
+    hover_z = bcl.kernel_config_cl(CL_PROFILE)[0]["hover_z"]
+    got = want = bcl.behavior_cl_init(15, "cpu")
+    before = obs.counters().get("launches.behavior_step_cl", 0)
+    kinds = set()
+    for i in range(200):
+        tel = {k: v[i] for k, v in seq.items()}
+        got, out = bcl.behavior_step_cl(got, tel, CL_PROFILE)
+        want, ref = bcl.behavior_step_cl_plain(want, tel, CL_PROFILE)
+        for a, b in zip(list(got) + list(out.values()),
+                        list(want) + list(ref.values())):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        assert list(out) == list(ref)
+        kind = out["cmd_kind"]
+        kinds |= set(kind.tolist())
+        assert (out["cmd"][kind == bcl.CMD_Z_YAW, 0] == hover_z).all()
+        assert (out["cmd"][kind == tb.CMD_POS_YAW, 2] == hover_z).all()
+    assert obs.counters().get("launches.behavior_step_cl", 0) == before
+    assert {bcl.CMD_Z_YAW, tb.CMD_POS_YAW, tb.CMD_ATT_THRUST} <= kinds
+
+
+def _cl_operands(fault: str):
+    """A clean tick's operands on the CPU (the committed scenarios' first
+    tick, 3 quads) with one fault: none ("cpu"), an int64 clock, a
+    rangefinder of the wrong length, a [B] tof_min, a float32 state."""
+    tel = {k: v[0] for k, v in testdata.cl_scenarios(3, "cpu").items()}
+    state = bcl.behavior_cl_init(3, "cpu")
+    if fault == "dtype":
+        tel["t_ms"] = tel["t_ms"].to(torch.int64)
+    elif fault == "shape":
+        tel["rf_m"] = torch.zeros(4)
+    elif fault == "tof_min":
+        tel["tof_min"] = tel["tof_min"][:, 0]
+    elif fault == "state_dtype":
+        state = state._replace(st=state.st.float())
+    return state, tel
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("cpu", "CUDA device"), ("dtype", "t_ms must be torch.int32"),
+    ("shape", r"rf_m must have shape \(3,\)"),
+    ("tof_min", r"tof_min must have shape \(3, 4\)"),
+    ("state_dtype", "st must be torch.int32")])
+def test_behavior_step_cl_kernel_refuses_what_it_does_not_take(fault, match):
+    """The clean machine's kernel wrapper raises ValueError, before it
+    launches anything, on CPU tensors and on an operand of another dtype
+    or shape; the health bit fields may be int64 (the committed
+    telemetry's are)."""
+    state, tel = _cl_operands(fault)
+    assert tel["sys_enabled"].dtype == torch.int64
+    before = obs.counters().get("launches.behavior_step_cl", 0)
+    with pytest.raises(ValueError, match=match):
+        bcl.behavior_step_cl_kernel(state, tel, CL_PROFILE)
+    assert obs.counters().get("launches.behavior_step_cl", 0) == before
 
 
 def test_behavior_step_on_cpu_tensors_runs_the_plain_path(runs):

@@ -1,11 +1,11 @@
 """The port's CUDA kernels (csrc/replay_exact.cu with its snapshot and
 map-step entries, csrc/replay_cone.cu, csrc/match_lattice.cu, the carry
 kernel of csrc/carry.cuh in both replay libraries, the EKF replay kernel
-of csrc/ekf.cuh, the flight state machine of csrc/behavior.cuh) against
-their plain torch versions, on the card, the simulator's card run
-against the committed JAX small swarm, and the SLAM's card run against
-its CPU run.  Every test here needs a
-CUDA device and skips without one.  The file imports nothing of jax or
+of csrc/ekf.cuh, the flight state machines of csrc/behavior.cuh and
+csrc/behavior_cl.cuh) against their plain torch versions, on the card,
+the simulator's card run against the committed JAX small swarm, and the
+SLAM's card run against its CPU run.  Every test here needs a CUDA
+device and skips without one.  The file imports nothing of jax or
 the JAX package (its flights are the port's committed test data), so it
 also runs where only the port is installed; from the repository root on a
 CUDA machine:
@@ -30,7 +30,7 @@ from micro_quad_slam_tpu_torch.ops.beams import extract_beams
 from micro_quad_slam_tpu_torch.ops.raycast import world_to_cell
 from micro_quad_slam_tpu_torch.ops.scanmatch import window_origin
 from micro_quad_slam_tpu_torch.utils import obs
-from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
+from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE, UL_PROFILE
 
 pytestmark = pytest.mark.cuda
 
@@ -578,7 +578,7 @@ def test_swarm_small_equals_jax_on_the_card(cuda):
                  .abs().max()) <= 1e-4
 
 
-# ------------------------------------------------- the flight state machine
+# ------------------------------------------------ the flight state machines
 
 def _random_telemetry(B: int, T: int, seed: int) -> dict:
     """T ticks of seeded random telemetry for B quads, [T, B] numpy arrays
@@ -586,7 +586,8 @@ def _random_telemetry(B: int, T: int, seed: int) -> dict:
     rejected and accepted takeoff acks, NaN rf_m, yaw_deg, motor_avg,
     batt_vpc, lpos_alt_filt and tof_min entries, and batteries held below
     the land and emergency thresholds long enough to trip the failsafes
-    (a quad's level is drawn once, 3.2 to 4.2 V a cell)."""
+    (a quad's level is drawn once, 3.2 to 4.2 V a cell); the clean
+    machine's enabled bits and battery validity last."""
     rng = np.random.default_rng(seed)
     t = (rng.integers(0, 5000, B)[None] + 20 * np.arange(T)[:, None]
          ).astype(np.int32)
@@ -643,17 +644,38 @@ def _random_telemetry(B: int, T: int, seed: int) -> dict:
         "map_inited": p(0.7),
         **{f"frontier_{d}": rng.integers(0, 300, shape).astype(np.int32)
            for d in "frlb"},
+        "sys_enabled": ((rng.random(shape + (4,)) < 0.9) @ bits
+                        ).astype(np.int32),
+        "batt_valid": p(0.9),
     }
 
 
-def _random_state(B: int, t0: np.ndarray, seed: int, device):
-    """A seeded random machine state for B quads at the clock t0 [B]: every
-    state, random flags, timers up to 5 s old or 0, NaN floats."""
+def _machine(name: str) -> dict:
+    """The UL machine ("ul") or the clean one ("cl"): its kernel and plain
+    steps, launch counter, start state, profile and state table."""
     from micro_quad_slam_tpu_torch.models import behavior as tb
+    from micro_quad_slam_tpu_torch.models import behavior_cl as bcl
 
+    if name == "ul":
+        return {"kernel": tb.behavior_step_kernel,
+                "plain": tb.behavior_step_plain, "launches": "behavior_step",
+                "init": tb.behavior_init, "cfg": UL_PROFILE,
+                "fields": tb._STATE_FIELDS, "state": tb.BehaviorState}
+    return {"kernel": bcl.behavior_step_cl_kernel,
+            "plain": bcl.behavior_step_cl_plain,
+            "launches": "behavior_step_cl", "init": bcl.behavior_cl_init,
+            "cfg": CL_PROFILE, "fields": bcl._STATE_FIELDS,
+            "state": bcl.BehaviorClState}
+
+
+def _random_state(machine: str, B: int, t0: np.ndarray, seed: int, device):
+    """A seeded random machine state for B quads at the clock t0 [B]: every
+    state, random flags, timers up to 5 s old or 0, NaN floats; the clean
+    machine's stale counters around their limit."""
+    m = _machine(machine)
     rng = np.random.default_rng(seed)
     d = {}
-    for name, dt, _ in tb._STATE_FIELDS:
+    for name, dt, _ in m["fields"]:
         if dt == torch.bool:
             d[name] = rng.random(B) < 0.5
         elif dt == torch.float32:
@@ -662,26 +684,33 @@ def _random_state(B: int, t0: np.ndarray, seed: int, device):
         else:
             d[name] = np.where(rng.random(B) < 0.3, 0, t0 - rng.integers(
                 0, 5000, B)).astype(np.int32)
-    d["st"] = rng.integers(0, 10, B).astype(np.int32)
-    d["turn_dir"] = rng.integers(0, 4, B).astype(np.int32)
-    d["forced_dir"] = rng.integers(0, 4, B).astype(np.int32)
+    cl = machine == "cl"
+    d["st"] = rng.integers(0, 8 if cl else 10, B).astype(np.int32)
+    if not cl:
+        d["turn_dir"] = rng.integers(0, 4, B).astype(np.int32)
+        d["forced_dir"] = rng.integers(0, 4, B).astype(np.int32)
     d["alt_src"] = rng.integers(0, 4, B).astype(np.int32)
-    d["kf"] = rng.integers(0, 256, B).astype(np.int32)
-    d["alt_est"] = np.where(rng.random(B) < 0.1, np.nan, rng.uniform(
-        -0.1, 1.2, B)).astype(np.float32)
+    d["kf"] = rng.integers(0, 32 if cl else 256, B).astype(np.int32)
+    alts = ("alt_est", "alt_max", "to_alt0") if cl else ("alt_est",)
+    for name in alts:
+        d[name] = np.where(rng.random(B) < 0.1, np.nan, rng.uniform(
+            -0.1, 1.2, B)).astype(np.float32)
+    if cl:
+        for name in ("lpos_stale", "rf_stale", "alt_stale"):
+            d[name] = rng.integers(0, 45, B).astype(np.int32)
     d["tof_filt"] = np.where(rng.random((B, 4)) < 0.1, np.nan, rng.uniform(
         0.1, 3.0, (B, 4))).astype(np.float32)
-    return tb.behavior_state_from_numpy(d, device)
+    return m["state"](**{k: torch.from_numpy(v).to(device)
+                         for k, v in d.items()})
 
 
-def _machine_runs(state, seq: dict, cfg):
+def _machine_runs(machine: str, state, seq: dict, cfg):
     """The machine over [T, B] telemetry tensors from `state`, through the
     kernel and through the plain path: per path, every tick's (state,
     outputs)."""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
-
+    m = _machine(machine)
     runs = []
-    for step in (tb.behavior_step_kernel, tb.behavior_step_plain):
+    for step in (m["kernel"], m["plain"]):
         st, ticks = state, []
         for i in range(seq["t_ms"].shape[0]):
             st, out = step(st, {k: v[i] for k, v in seq.items()}, cfg)
@@ -702,33 +731,48 @@ def _assert_machine_same(kernel_ticks, plain_ticks):
     assert len(kernel_ticks) == len(plain_ticks)
 
 
-def test_machine_kernel_on_the_scenarios_bit_equals_plain_on_the_card(cuda):
-    """test_torch_behavior.py's four fc_mock scenarios (1,100 ticks: idle,
-    arming, takeoff, ramp, liftoff assist, hover, explore, turning,
-    disarming), tiled to B = 1,000 quads (not a multiple of the kernel's
-    block): the kernel's new state and every output equal the plain
-    path's, tick for tick, one launch a tick.  (Landing is the random
-    cases'.)"""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
+# the committed schedules: (machine, [T, B] telemetry, the states reached)
+SCHEDULES = {
+    "ul_scenarios": ("ul", testdata.ul_scenarios, {1, 2, 3, 4, 5, 6, 7, 9}),
+    "cl_scenarios": ("cl", testdata.cl_scenarios, {1, 2, 3, 4, 5, 6, 7}),
+    "cl_fuzz": ("cl", testdata.cl_fuzz, {0, 1, 2, 3, 4, 5, 6, 7})}
 
-    seq = testdata.ul_scenarios(1000, cuda)
+
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_machine_kernel_on_the_scenarios_bit_equals_plain_on_the_card(
+        cuda, schedule):
+    """The committed fc_mock schedules tiled to B = 1,000 quads (not a
+    multiple of the kernels' block): test_torch_behavior.py's four UL
+    scenarios (1,100 ticks: idle, arming, takeoff, ramp, liftoff assist,
+    hover, explore, turning, disarming; landing is the random cases'),
+    test_torch_behavior_cl.py's 15 clean ones (1,100 ticks, to the hover
+    lock, landing and disarming) and the 32 clean fuzzed schedules (700
+    ticks).  The kernel's new state and every output equal the plain
+    path's, tick for tick, one launch a tick."""
+    machine, load, reached = SCHEDULES[schedule]
+    m = _machine(machine)
+    seq = load(1000, cuda)
     T = seq["t_ms"].shape[0]
-    before = _launches("behavior_step")
-    kernel, plain = _machine_runs(tb.behavior_init(1000, cuda), seq,
-                                  UL_PROFILE)
+    before = _launches(m["launches"])
+    kernel, plain = _machine_runs(machine, m["init"](1000, cuda), seq,
+                                  m["cfg"])
     torch.cuda.synchronize()
-    assert _launches("behavior_step") == before + T
+    assert _launches(m["launches"]) == before + T
     _assert_machine_same(kernel, plain)
     states = torch.stack([o["state"] for _, o in kernel]).unique().tolist()
-    assert set(states) >= {1, 2, 3, 4, 5, 6, 7, 9}, states
+    assert set(states) >= reached, states
+    if machine == "cl":
+        assert bool(kernel[-1][0].hv_locked.any())
 
 
-# the random cases: each one's changes to UL_PROFILE's groups
+# the random cases: each one's machine and changes to its profile's groups
 MACHINE_CASES = {
-    "random": {}, "int64_health": {}, "one_quad": {},
-    "no_explore": {"behavior": {"explore_enabled": False}},
-    "hover_test_only": {"behavior": {"hover_test_only": True}},
-    "no_land_actions": {"battery": {"land_actions_enabled": False}}}
+    "random": ("ul", {}), "int64_health": ("ul", {}), "one_quad": ("ul", {}),
+    "no_explore": ("ul", {"behavior": {"explore_enabled": False}}),
+    "hover_test_only": ("ul", {"behavior": {"hover_test_only": True}}),
+    "no_land_actions": ("ul", {"battery": {"land_actions_enabled": False}}),
+    "cl_random": ("cl", {}), "cl_int64_health": ("cl", {}),
+    "cl_one_quad": ("cl", {})}
 
 
 @pytest.mark.parametrize("case", list(MACHINE_CASES))
@@ -737,25 +781,30 @@ def test_machine_kernel_on_random_telemetry_bit_equals_plain_on_the_card(
     """Random states under random telemetry (NaN rf_m, yaw_deg, motor_avg,
     batt_vpc and tof_min entries; batteries that trip the low and
     emergency failsafes), 300 ticks: the kernel equals the plain path tick
-    for tick; with int64 sys_health, at B = 1, and with explore_enabled
-    off, hover_test_only on, land_actions_enabled off."""
+    for tick, for each machine; with int64 health bits, at B = 1, and (UL)
+    with explore_enabled off, hover_test_only on, land_actions_enabled
+    off."""
     import dataclasses
 
-    cfg = dataclasses.replace(UL_PROFILE, **{
-        group: dataclasses.replace(getattr(UL_PROFILE, group), **changes)
-        for group, changes in MACHINE_CASES[case].items()})
-    B = 1 if case == "one_quad" else 777
+    machine, changes = MACHINE_CASES[case]
+    base = _machine(machine)["cfg"]
+    cfg = dataclasses.replace(base, **{
+        group: dataclasses.replace(getattr(base, group), **fields)
+        for group, fields in changes.items()})
+    B = 1 if case.endswith("one_quad") else 777
     seed = 1800 + list(MACHINE_CASES).index(case)
     tel = _random_telemetry(B, 300, seed)
-    if case == "int64_health":
-        tel["sys_health"] = tel["sys_health"].astype(np.int64)
+    if case.endswith("int64_health"):
+        for k in ("sys_health", "sys_enabled"):
+            tel[k] = tel[k].astype(np.int64)
     seq = {k: torch.from_numpy(v).to(cuda) for k, v in tel.items()}
-    state = _random_state(B, tel["t_ms"][0], seed, cuda)
-    kernel, plain = _machine_runs(state, seq, cfg)
+    state = _random_state(machine, B, tel["t_ms"][0], seed, cuda)
+    kernel, plain = _machine_runs(machine, state, seq, cfg)
     _assert_machine_same(kernel, plain)
-    if B > 1:     # some quads' batteries tripped (KF_BATT_LAND, _EMERG)
+    if B > 1:     # some quads' batteries tripped (the land, emerg bits)
+        land, emerg = (8, 16) if machine == "cl" else (64, 128)
         gained = plain[-1][1]["kf_flags"] & ~state.kf
-        assert bool(((gained & 64) != 0).any() and ((gained & 128) != 0)
+        assert bool(((gained & land) != 0).any() and ((gained & emerg) != 0)
                     .any())
 
 

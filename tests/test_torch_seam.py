@@ -90,46 +90,66 @@ def _enum(header: str, name: str, prefix: str) -> list:
     return [w[len(prefix):] for w in names[:-1]]
 
 
-def _machine_tables() -> dict:
-    from micro_quad_slam_tpu_torch.models import behavior as tb
+# the machine kernels' headers
+MACHINE_HEADERS = ("behavior.cuh", "behavior_cl.cuh")
 
-    floats, ints = tb.kernel_config(tb.UL_PROFILE)
+
+def _machine_kernel(header: str):
+    """The MachineKernel whose wrapper launches the header's kernel."""
+    from micro_quad_slam_tpu_torch.models import behavior, behavior_cl
+
+    return {"behavior.cuh": behavior.UL_KERNEL,
+            "behavior_cl.cuh": behavior_cl.CL_KERNEL}[header]
+
+
+def _machine_tables(header: str) -> dict:
+    from micro_quad_slam_tpu_torch.utils.config import CL_PROFILE
+
+    k = _machine_kernel(header)
+    floats, ints = k.config(CL_PROFILE)
     return {
-        ("BehTm", "TM_"): [n for n, _ in tb._TM_FIELDS],
-        ("BehSt", "BS_"): list(tb.BehaviorState._fields),
-        ("BehWordRow", "WR_"): [*tb._INT_FIELDS, *tb._FLT_FIELDS,
-                                *tb.WORD_OUTPUTS],
-        ("BehFlagRow", "FR_"): [*tb._BOOL_FIELDS, *tb.FLAG_OUTPUTS],
+        ("BehTm", "TM_"): list(k.tm_names),
+        ("BehSt", "BS_"): list(k.state._fields),
+        ("BehWordRow", "WR_"): list(k.word_rows),
+        ("BehFlagRow", "FR_"): list(k.flag_rows),
         ("BehCfgFloat", "CF_"): list(floats),
         ("BehCfgInt", "CI_"): list(ints)}
 
 
+@pytest.mark.parametrize("header", MACHINE_HEADERS)
 @pytest.mark.parametrize("enum", ["BehTm", "BehSt", "BehWordRow",
                                   "BehFlagRow", "BehCfgFloat", "BehCfgInt"])
-def test_machine_kernel_layout_matches_the_python_tables(enum):
-    """csrc/behavior.cuh's operand, output-row and configuration orders
-    are models/behavior.py's: the wrapper passes pointers, reads rows and
-    packs the configuration by them."""
-    (key, want), = [(k, v) for k, v in _machine_tables().items()
+def test_machine_kernel_layout_matches_the_python_tables(enum, header):
+    """Each machine kernel's operand, output-row and configuration orders
+    (csrc/behavior.cuh, csrc/behavior_cl.cuh) are its wrapper's
+    (models/behavior.py::UL_KERNEL, models/behavior_cl.py::CL_KERNEL): the
+    wrapper passes pointers, reads rows and packs the configuration by
+    them."""
+    (key, want), = [(k, v) for k, v in _machine_tables(header).items()
                     if k[0] == enum]
-    assert _enum("behavior.cuh", *key) == want
+    assert _enum(header, *key) == want
 
 
-def test_machine_kernel_output_pointers_follow_the_header():
+@pytest.mark.parametrize("header", MACHINE_HEADERS)
+def test_machine_kernel_output_pointers_follow_the_header(header):
     """The wrapper passes one pointer an output field: BehWordRow's
     fields, BehFlagRow's, then tof_filt and cmd (kBehOutTofFilt,
-    kBehOutCmd); its blocks hold every field once."""
-    from micro_quad_slam_tpu_torch.models import behavior as tb
+    kBehOutCmd); its blocks hold every field once, and the outputs it
+    returns are the plain path's."""
+    from micro_quad_slam_tpu_torch.models.behavior import OUTPUTS
 
-    text = (CSRC / "behavior.cuh").read_text()
+    k = _machine_kernel(header)
+    text = (CSRC / header).read_text()
     assert re.search(r"kBehOutTofFilt\s*=\s*kBehWordRows\s*\+\s*"
                      r"kBehFlagRows;", text)
     assert re.search(r"kBehOutCmd\s*=\s*kBehOutTofFilt\s*\+\s*1;", text)
-    assert list(tb._OUT_FIELDS) == (_enum("behavior.cuh", "BehWordRow", "WR_")
-                                    + _enum("behavior.cuh", "BehFlagRow",
-                                            "FR_") + ["tof_filt", "cmd"])
-    held = [n for block in tb._OUT_BLOCKS for n in block]
-    assert sorted(held) == sorted(tb._OUT_FIELDS)
+    fields = (_enum(header, "BehWordRow", "WR_")
+              + _enum(header, "BehFlagRow", "FR_") + ["tof_filt", "cmd"])
+    assert len(k.out_at) == len(fields) == k.arrays[2]._length_
+    held = [n for block in k.blocks for n in block]
+    assert sorted(held) == sorted(fields)
+    assert [n for n, _ in k.outputs[:len(OUTPUTS)]] == list(OUTPUTS)
+    assert set(k.state._fields) <= set(fields)
 
 
 UPWARD = tuple(f"micro_quad_slam_tpu_torch.{p}"

@@ -138,6 +138,30 @@ def test_machine_in_sim_step_equals_the_machine_alone(monkeypatch):
     assert len(seen) == 60
 
 
+def test_sim_step_hands_the_kernel_operands_it_takes(monkeypatch):
+    """The clean tick's telemetry as sim_step assembles it (strided EKF
+    views, the broadcast want_arm, the aliased health bits) and the
+    machine's state pass the kernel wrapper's operand checks at every
+    tick: on the CPU it refuses them only for their device."""
+    seen = []
+
+    def spy(state, tm, cfg):
+        seen.append((state, tm))
+        return bcl.behavior_step_cl_plain(state, tm, cfg)
+
+    monkeypatch.setattr(S, "behavior_step_cl", spy)
+    world = S.make_world(4, device="cpu")
+    st = S.sim_init(4, 5, spread_m=0.5, device="cpu", machine="cl")
+    for _ in range(3):
+        st, _ = S.sim_step(st, world, CL_PROFILE, dt_ms=20)
+    assert len(seen) == 3
+    for state, tm in seen:
+        assert tm["want_arm"].stride(0) == 0
+        assert tm["lpos_x"].stride(0) > 1
+        with pytest.raises(ValueError, match="must be on a CUDA device"):
+            bcl.behavior_step_cl_kernel(state, tm, CL_PROFILE)
+
+
 class _Ops(TorchDispatchMode):
     """The aten operations issued, in order."""
 
@@ -260,11 +284,14 @@ def test_cli_sim_flies_the_clean_machine(tmp_path, capsys):
 def test_cl_swarm_on_the_card_equals_the_cpu(airborne):
     """testdata.cl_swarm on the card equals its CPU run at B = 64: state,
     command and lock of every quad-tick, the poses within the cell's
-    1e-4 m."""
+    1e-4 m; the card run launches the clean machine's kernel once a
+    tick."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     T = 100 if airborne else 200
+    before = obs.counters().get("launches.behavior_step_cl", 0)
     got = testdata.cl_swarm("cuda", 64, T, airborne)
+    assert obs.counters().get("launches.behavior_step_cl", 0) == before + T
     want = testdata.cl_swarm("cpu", 64, T, airborne)
     for k in ("state", "cmd_kind", "cmd", "locked"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -368,6 +368,20 @@ def ul_scenario_telemetry() -> dict:
     return {k: np.stack([a[k] for a in arrs], axis=1) for k in arrs[0]}
 
 
+def cl_scenario_telemetry() -> dict:
+    """tests/test_torch_behavior_cl.py's scenarios as the golden CL
+    machine's telemetry over CL_SCENARIO_TICKS ticks: each field [T, 15]."""
+    from fc_mock import run_scenario
+    from micro_quad_slam_tpu.golden.behavior_cl import GoldenBehaviorCL
+    from test_behavior import telems_to_arrays
+    from test_torch_behavior_cl import SCENARIOS
+
+    arrs = [telems_to_arrays(run_scenario(
+        sc, n_ticks=testdata.CL_SCENARIO_TICKS,
+        machine=GoldenBehaviorCL())[0]) for sc in SCENARIOS]
+    return {k: np.stack([a[k] for a in arrs], axis=1) for k in arrs[0]}
+
+
 def jax_scan_draws(key, n_steps: int, dt_ms: int, scan_period_ms: int,
                    B: int) -> list:
     """The JAX simulator's scan-tick draws for a run from a state holding
@@ -681,6 +695,21 @@ def test_ul_scenario_telemetry_equals_the_mock_now():
                                   want["yaw_deg"])
     armed = tiled["fc_armed"].numpy()
     assert armed.any() and not armed.all()    # armed mid-run
+
+
+def test_cl_scenario_telemetry_equals_the_mock_now():
+    want = cl_scenario_telemetry()
+    got = testdata.reference("cl_scenario_telemetry")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    n = want["t_ms"].shape[1]
+    tiled = testdata.cl_scenarios(n + 5, device="cpu")
+    assert tiled["t_ms"].shape == (testdata.CL_SCENARIO_TICKS, n + 5)
+    assert tiled["sys_enabled"].dtype == torch.int64
+    np.testing.assert_array_equal(tiled["lpos_x"][:, n:].numpy(),
+                                  want["lpos_x"][:, :5])
 
 
 @pytest.mark.slow
