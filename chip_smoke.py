@@ -139,7 +139,18 @@ failure; nothing falls back to the CPU.  Phases:
      every quad-tick equal to its CPU run, the poses within 1e-4 m, every
      quad locked at the end;
  13. the native scanlog reader (io/native.py): built with g++ and equal
-     to the Python reader on the SLAM bench flight.
+     to the Python reader on the SLAM bench flight;
+ 14. swarm_vf, the UL swarm on its vision front-end (testdata.vf_swarm:
+     a pyramidal-LK flow frame every 1 ms tick, the camera streaming from
+     the start): at B=64 over 100 ticks every quad-tick's state and
+     command kind equal to its CPU run, the command values, EKF
+     positions and poses within 1e-4, the vision rates within 1e-3 rad/s
+     and the qualities within 1; then ul_swarm_vf.rooms' job shape
+     (B=1024, 100 ticks) once untimed, once timed, and once under
+     torch.profiler: the launches and the device time a tick, and the
+     front-end's part of each (the launches inside the spans
+     sim.flow.render and sim.flow.lk, and the device time of the work
+     they launched, joined by the profiler's correlation ids).
 
 The bench phases take their end-to-end times from the port's bench entry
 (micro_quad_slam_tpu_torch/bench.py), so each workload is timed once.
@@ -2813,6 +2824,144 @@ def phase_native_io(tmp_dir: Path) -> None:
         equal_python=True, native_read_s=native_s, python_read_s=python_s)
 
 
+VF_SPANS = ("sim.flow.render", "sim.flow.lk")
+VF_DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset", "memcpy", "memset"}
+
+
+def _span_split(events: list, spans=VF_SPANS) -> dict:
+    """From a chrome trace's events: the kernel launches and the device
+    seconds (kernels, copies, sets) in all, and those issued inside each
+    of `spans` (host user-annotation ranges; a device op is the span's
+    when the runtime call that issued it, found by its correlation id,
+    lies inside one of the span's ranges)."""
+    import bisect
+
+    ranges = {n: [] for n in spans}
+    runtime, launches, device = {}, [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = str(e.get("cat", "")).lower()
+        ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
+        corr = (e.get("args") or {}).get("correlation")
+        if cat == "user_annotation" and e["name"] in ranges:
+            ranges[e["name"]].append((ts, ts + dur))
+        elif cat in ("cuda_runtime", "cuda_driver", "runtime", "driver"):
+            runtime[corr] = ts
+            if e["name"].startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                launches.append(ts)
+        elif cat in VF_DEVICE_CATS:
+            device.append((corr, dur * 1e-6))
+    for r in ranges.values():
+        r.sort()
+    starts = {n: [a for a, _ in r] for n, r in ranges.items()}
+
+    def owner(ts):
+        for n, r in ranges.items():
+            k = bisect.bisect_right(starts[n], ts) - 1
+            if k >= 0 and r[k][1] >= ts:
+                return n
+        return None
+
+    out = {"launches": len(launches), "device_s": sum(d for _, d in device),
+           **{n: {"launches": 0, "device_s": 0.0,
+                  "calls": len(ranges[n])} for n in spans}}
+    for ts in launches:
+        n = owner(ts)
+        if n:
+            out[n]["launches"] += 1
+    for corr, d in device:
+        n = owner(runtime[corr]) if corr in runtime else None
+        if n:
+            out[n]["device_s"] += d
+    return out
+
+
+def phase_swarm_vf(device, smi: str, B: int = 1024, T: int = 100) -> None:
+    """The UL swarm on its vision front-end: the card against the CPU at
+    B=64 (testdata.vf_swarm), then ul_swarm_vf.rooms' job shape, timed
+    and profiled (module docstring, 14)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    got = testdata.vf_swarm(device, 64, 100)
+    secs = time.perf_counter() - t0
+    want = testdata.vf_swarm(torch.device("cpu"), 64, 100)
+    differ = [k for k in ("state", "cmd_kind")
+              if not np.array_equal(got[k], want[k])]
+    err = {k: float(np.abs(got[k].astype(np.float64)
+                           - want[k].astype(np.float64)).max())
+           for k in ("cmd", "est_x", "est_y", "x", "y", "of_rate_x",
+                     "of_rate_y", "of_q")}
+    tol = {"of_rate_x": 1e-3, "of_rate_y": 1e-3, "of_q": 1}
+    bad = [k for k, v in err.items() if not v <= tol.get(k, 1e-4)]
+    check(not differ and not bad, f"the vision swarm on the card differs "
+          f"from the CPU: {differ}, beyond tolerance {bad}: {err}")
+    check(bool(np.isfinite(got["of_rate_x"]).all())
+          and int(got["of_q"].min()) > 200,
+          f"the vision swarm's rates or quality: quality min "
+          f"{int(got['of_q'].min())}")
+    say("swarm_vf", B=64, ticks=100, equal_cpu_states=True, max_err=err,
+        card_seconds=secs, states=np.unique(got["state"]).tolist())
+
+    world, st0, run = testdata.vf_swarm_start(device, B)
+
+    def job():
+        out = sim.sim_run(st0, world, T, port.UL_PROFILE, record=True,
+                          **run)
+        torch.cuda.synchronize()
+        return out
+
+    job()                                 # warm-up
+    obs.take()
+    t0 = time.perf_counter()
+    fin, diag = job()
+    wall = time.perf_counter() - t0
+    frames = obs.counters().get("sim.flow_frames", 0)
+    check(frames == B * T, f"the vision swarm flowed {frames} quad-frames "
+                           f"in a job of {B} x {T}")
+    low = int((diag["of_q"] < port.UL_PROFILE.gates.of_min_quality).sum())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        job()
+        traced = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(prefix="smoke_vf_", suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            split = _span_split(json.load(f)["traceEvents"])
+    finally:
+        os.remove(path)
+    del prof
+    _, counts = obs.take()
+    fe_l = sum(split[n]["launches"] for n in VF_SPANS)
+    fe_s = sum(split[n]["device_s"] for n in VF_SPANS)
+    check(split["launches"] > 0 and split["device_s"] > 0,
+          "the profiler saw no launches or no device time")
+    check(all(split[n]["calls"] == T for n in VF_SPANS),
+          f"the front-end's spans opened {[split[n]['calls'] for n in VF_SPANS]}"
+          f" times in {T} ticks")
+    say("swarm_vf_job", B=B, T=T, job_seconds=wall,
+        quad_ticks_per_s=B * T / wall, traced_seconds=traced,
+        flow_frames=frames, frames_under_gate=low,
+        flow_low_q_traced=counts.get("sim.flow_low_q"),
+        launches_per_tick=split["launches"] / T,
+        front_end_launches_per_tick=fe_l / T,
+        front_end_launch_share=fe_l / split["launches"],
+        device_us_per_tick=1e6 * split["device_s"] / T,
+        front_end_device_us_per_tick=1e6 * fe_s / T,
+        front_end_device_share=fe_s / split["device_s"],
+        by_span={n: {"launches_per_tick": split[n]["launches"] / T,
+                     "device_us_per_tick": 1e6 * split[n]["device_s"] / T}
+                 for n in VF_SPANS},
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), card=smi)
+
+
 def _jax_package_loaded() -> list:
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -2845,6 +2994,7 @@ def main() -> int:
     phase_sharded(device, smi)
     phase_behavior_cl(device)
     phase_swarm_cl(device)
+    phase_swarm_vf(device, smi)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     phase_native_io(build)

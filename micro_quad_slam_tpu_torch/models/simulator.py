@@ -28,14 +28,18 @@ with the XY velocity setpoint at zero and the yaw held.
 
 Under a torch profiler (utils/obs.py) sim_run is the span `sim` and each
 tick's stages are its spans sim.scan (the scan branch: world raytrace,
-scan synth, beams, map step), sim.frontier (scan ticks), sim.flow,
-sim.ekf, sim.behavior (the machine and the map init it asks for) and
-sim.fc (twice a tick: the telemetry, then the FC applying the outputs
-and the dynamics); the host counters sim.ticks and sim.scan_ticks count
-every tick and sim.cl_ticks the clean machine's ticks, and the device
-counters sim.turning the quad-ticks spent in TURNING (UL) and
-sim.cl_locked those with the clean machine's hover locked.  Untraced, the
-spans are no-ops and the device counters are not computed.
+scan synth, beams, map step), sim.frontier (scan ticks), sim.flow (and,
+on a vision-flow frame, inside it sim.flow.render, the camera frames,
+and sim.flow.lk, the pyramidal LK and the rate conversion), sim.ekf,
+sim.behavior (the machine and the map init it asks for) and sim.fc
+(twice a tick: the telemetry, then the FC applying the outputs and the
+dynamics); the host counters sim.ticks and sim.scan_ticks count every
+tick, sim.cl_ticks the clean machine's ticks and sim.flow_frames the
+quad-frames the vision flow flowed, and the device counters sim.turning
+the quad-ticks spent in TURNING (UL), sim.cl_locked those with the clean
+machine's hover locked and sim.flow_low_q the vision flow's quad-frames
+whose quality is under gates.of_min_quality.  Untraced, the spans are
+no-ops and the device counters are not computed.
 
 The time is a host integer, so whether a tick scans is decided on the
 host: the scan branch and the frontier refresh run only on scan ticks, by
@@ -290,6 +294,15 @@ CAM_SIZE = 32       # downward camera resolution (vision-flow mode)
 CAM_FOCAL = 60.0    # focal length in pixels
 
 
+def _camera_frame(x, y, alt, yaw_rad) -> torch.Tensor:
+    """The downward camera's frames [B, CAM, CAM] at poses [B] (the
+    height floored at 0.05 m)."""
+    from micro_quad_slam_tpu_torch.ops.flow import render_camera_frame
+
+    return render_camera_frame(x, y, torch.clamp(alt, min=0.05), yaw_rad,
+                               CAM_SIZE, CAM_FOCAL)
+
+
 class SimState(NamedTuple):
     t_ms: int                   # host int
     gen: torch.Generator        # CPU generator of the scan ticks' draws
@@ -322,7 +335,7 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
              spread_m: float = 1.0, airborne: bool = False,
              hover_alt_m: float | None = None, device=None, start=None,
              t0_ms: int = 0, machine: str = "ul",
-             xy_stamp_ms: int = 1) -> SimState:
+             xy_stamp_ms: int = 1, camera_streaming: bool = False) -> SimState:
     """The swarm's start state on `device` (the CUDA device unless told
     otherwise): quads spread uniformly over +/-spread_m with random
     headings, drawn on a CPU generator seeded with `seed`, which the state
@@ -346,7 +359,13 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
     stamp plus gates.xy_stable_hold_ms (UL: and behavior.frontier_eval_ms)
     an airborne UL quad explores from its first tick, flying forward or
     turning from what its first scan and frontier queries show, and a CL
-    quad locks its hover."""
+    quad locks its hover.
+
+    camera_streaming=True starts the downward camera mid-stream: cam_prev
+    is the frame rendered at the start pose (as sim_step renders it) and
+    cam_valid is True, so the first vision-flow frame flows as every later
+    one does, where a camera that starts with the run reports no rate on
+    its first frame."""
     if machine not in MACHINES:
         raise ValueError(f"machine {machine!r}: one of {MACHINES}")
     cl = machine == "cl"
@@ -393,14 +412,16 @@ def sim_init(batch: int, seed: int = 0, geom: GridGeom = DEFAULT_GEOM,
         ekf = ekf_init((batch,), x0=x0, y0=y0, z0=alt,
                        yaw0=yaw0 * _DEG2RAD, device=device)
     nan = lambda *s: torch.full(s, float("nan"), device=device)       # noqa: E731
+    cam = torch.zeros((batch, CAM_SIZE, CAM_SIZE), device=device)
+    if camera_streaming:
+        cam = _camera_frame(x0, y0, alt, yaw0 * _DEG2RAD)
     return SimState(
         t_ms=t0_ms, gen=gen, x=x0, y=y0, yaw=yaw0,
         vx=torch.zeros((batch,), device=device),
         vy=torch.zeros((batch,), device=device),
         alt=alt, fc=fc, beh=beh, mapper=mapper, ekf=ekf,
         tof_min=nan(batch, 4), scan_count=0,
-        cam_prev=torch.zeros((batch, CAM_SIZE, CAM_SIZE), device=device),
-        cam_valid=False,
+        cam_prev=cam, cam_valid=camera_streaming,
         vis_rate_x=nan(batch), vis_rate_y=nan(batch),
         vis_q=torch.zeros((batch,), dtype=torch.int32, device=device),
         frontier=torch.zeros((batch, 4), dtype=torch.int32, device=device))
@@ -557,25 +578,28 @@ def sim_step(state: SimState, world: World, cfg: PipelineConfig = UL_PROFILE,
         vis_rx, vis_ry, vis_q = state.vis_rate_x, state.vis_rate_y, state.vis_q
         if vision_flow:
             from micro_quad_slam_tpu_torch.ops.flow import (
-                flow_to_rates, lk_flow_batched, render_camera_frame)
+                flow_to_rates, lk_flow_batched)
 
             if flow_period_ms % dt_ms:
                 raise ValueError("flow_period_ms must be a multiple of "
                                  "dt_ms (the rate conversion divides by "
                                  "the true inter-frame time)")
-            if t % flow_period_ms == 0:
-                cur = render_camera_frame(state.x, state.y,
-                                          torch.clamp(state.alt, min=0.05),
-                                          yaw_rad, CAM_SIZE, CAM_FOCAL)
-                res = lk_flow_batched(cam_prev, cur)
-                # camera x = body x at yaw 0 by construction of the renderer
-                rx, ry = flow_to_rates(res.dx_px, res.dy_px,
-                                       _F32(flow_period_ms * 1e-3), CAM_FOCAL)
-                q = torch.clamp(res.quality, 0, 255).to(torch.int32)
-                nan = float("nan")
-                vis_rx = rx if cam_valid else torch.full_like(rx, nan)
-                vis_ry = ry if cam_valid else torch.full_like(ry, nan)
-                vis_q = q if cam_valid else torch.zeros_like(q)
+            if is_flow_tick(t, flow_period_ms):
+                obs.count("sim.flow_frames", B)
+                with obs.span("sim.flow.render"):
+                    cur = _camera_frame(state.x, state.y, state.alt, yaw_rad)
+                with obs.span("sim.flow.lk"):
+                    res = lk_flow_batched(cam_prev, cur)
+                    # camera x = body x at yaw 0 by construction of the
+                    # renderer
+                    rx, ry = flow_to_rates(res.dx_px, res.dy_px,
+                                           _F32(flow_period_ms * 1e-3),
+                                           CAM_FOCAL)
+                    q = torch.clamp(res.quality, 0, 255).to(torch.int32)
+                    nan = float("nan")
+                    vis_rx = rx if cam_valid else torch.full_like(rx, nan)
+                    vis_ry = ry if cam_valid else torch.full_like(ry, nan)
+                    vis_q = q if cam_valid else torch.zeros_like(q)
                 cam_prev, cam_valid = cur, True
             of_rate_x = W(airborne, vis_rx, float("nan"))
             of_rate_y = W(airborne, vis_ry, float("nan"))
@@ -814,6 +838,11 @@ def is_scan_tick(t_ms: int, scan_period_ms: int) -> bool:
     return t_ms % scan_period_ms == 0
 
 
+def is_flow_tick(t_ms: int, flow_period_ms: int) -> bool:
+    """Whether the tick that ends at t_ms takes a vision-flow frame."""
+    return t_ms % flow_period_ms == 0
+
+
 def scan_tick_count(t_ms: int, n_steps: int, dt_ms: int,
                     scan_period_ms: int) -> int:
     """The scan ticks of a run of n_steps ticks from t_ms: the draws
@@ -826,26 +855,33 @@ def sim_run(state: SimState, world: World, n_steps: int,
             cfg: PipelineConfig = UL_PROFILE, geom: GridGeom = DEFAULT_GEOM,
             dt_ms: int = 20, scan_period_ms: int = 100,
             record: bool = False, vision_flow: bool = False, draws=None,
-            noise_mm: float = 5.0, dropout_p: float = 0.02):
+            noise_mm: float = 5.0, dropout_p: float = 0.02,
+            flow_period_ms: int = 100):
     """Run n_steps closed-loop ticks; returns the final state and the
     diagnostics stacked over the steps ([T, B, ...] tensors; with raw
     scans when record=True).  draws, when given, holds one (normal,
     uniform) pair per scan tick of the run, in order (see sim_step);
     otherwise the state's generator draws them.  vision_flow replaces the
     oracle flow sensor with pyramidal LK on rendered downward-camera
-    frames.  noise_mm and dropout_p are the ToF model's (sim_step)."""
+    frames, one every flow_period_ms.  noise_mm and dropout_p are the ToF
+    model's (sim_step)."""
     with obs.span("sim", state.x.device):
         diags = []
+        flow_q = []         # the vision flow's qualities, frame by frame
         k = 0
         for _ in range(n_steps):
             due = is_scan_tick(state.t_ms + dt_ms, scan_period_ms)
             d = draws[k] if (due and draws is not None) else None
             k += int(due)
+            flows = vision_flow and is_flow_tick(state.t_ms + dt_ms,
+                                                 flow_period_ms)
             state, diag = sim_step(state, world, cfg, geom, dt_ms,
                                    scan_period_ms, noise_mm, dropout_p,
                                    record=record, vision_flow=vision_flow,
-                                   draws=d)
+                                   flow_period_ms=flow_period_ms, draws=d)
             diags.append(diag)
+            if flows:
+                flow_q.append(state.vis_q)
         if not diags:
             return state, {}
         diag = {key: torch.stack([dg[key] for dg in diags])
@@ -854,6 +890,9 @@ def sim_run(state: SimState, world: World, n_steps: int,
             obs.count("sim.cl_locked", lambda: diag["locked"])
         else:
             obs.count("sim.turning", lambda: diag["state"] == ST_TURNING)
+        if flow_q:
+            obs.count("sim.flow_low_q", lambda: torch.stack(flow_q)
+                      < cfg.gates.of_min_quality)
     return state, diag
 
 

@@ -483,3 +483,39 @@ def cl_swarm(device=None, B: int = 64, T: int = 100,
                              "est_y")}
     out.update(x=fin.x, y=fin.y, yaw=fin.yaw)
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def vf_swarm_start(device=None, B: int = 64):
+    """The UL swarm flying on its vision front-end on `device`: B quads
+    from sim_init's seeded spread (seed 11, 0.5 m) in the CLI's 7 m room
+    with its box, airborne mid-mission with the camera streaming, ticks of
+    1 ms from the clock at 10 s (ul_swarm_vf.rooms' start: past the XY
+    hold and the frontier period, so they fly forward or turn from the
+    first tick, a scan tick), a pyramidal-LK flow frame every tick.
+    Returns (world, state, sim_run's keyword arguments)."""
+    from micro_quad_slam_tpu_torch.models.simulator import (
+        make_world, sim_init)
+    from micro_quad_slam_tpu_torch.utils.device import as_device
+
+    device = as_device(device)
+    world = make_world(B, room=(-3.5, -3.5, 3.5, 3.5),
+                       obstacles=[(1.5, -0.5, 2.5, 0.5)], device=device)
+    st = sim_init(B, 11, spread_m=0.5, airborne=True, device=device,
+                  t0_ms=9999, camera_streaming=True)
+    return world, st, {"dt_ms": 1, "vision_flow": True, "flow_period_ms": 1}
+
+
+def vf_swarm(device=None, B: int = 64, T: int = 100) -> dict:
+    """T ticks of the swarm on its vision front-end from vf_swarm_start:
+    per quad-tick [T, B] the state, the command's kind and values
+    [T, B, 4], the EKF position, the vision rates and quality, and the
+    final true pose, as numpy."""
+    from micro_quad_slam_tpu_torch.models.simulator import sim_run
+    from micro_quad_slam_tpu_torch.utils.config import UL_PROFILE
+
+    world, st, run = vf_swarm_start(device, B)
+    fin, d = sim_run(st, world, T, UL_PROFILE, record=True, **run)
+    out = {k: d[k] for k in ("state", "cmd_kind", "cmd", "est_x", "est_y",
+                             "of_rate_x", "of_rate_y", "of_q")}
+    out.update(x=fin.x, y=fin.y, yaw=fin.yaw)
+    return {k: v.cpu().numpy() for k, v in out.items()}

@@ -165,3 +165,43 @@ def test_vision_flow_sim_step_like_jax():
                                    atol=tol, err_msg=k)
     assert int(tst.vis_q.min()) > 100
     assert (tst.beh.st == tb.ST_EXPLORE).all()
+
+
+def test_vision_flow_every_tick_like_jax():
+    """sim_step with a flow frame every 1 ms tick, as the ul_swarm_vf
+    cell flies it: 20 ticks of a moving airborne swarm of 8, from the same
+    JAX state, give the JAX package's vision rates within SHIFT_TOL's
+    rate (a shift of 1e-3 px over one 1 ms frame at 60 px focal is
+    1/60 rad/s) and qualities within 1, and the same states."""
+    B, dt = 8, 1
+    world = JS.make_world(B, room=(-3.5, -3.5, 3.5, 3.5))
+    st = JS.sim_init(B, jax.random.PRNGKey(4), spread_m=0.5, airborne=True)
+    rng = np.random.default_rng(4)
+    st = st._replace(vx=jnp.asarray(rng.uniform(-0.4, 0.4, B), jnp.float32),
+                     vy=jnp.asarray(rng.uniform(-0.4, 0.4, B), jnp.float32))
+    jst = st
+    tst = S.sim_state_from_numpy(jax.tree_util.tree_map(np.asarray, st),
+                                 "cpu")
+    tworld = S.make_world(B, room=(-3.5, -3.5, 3.5, 3.5), device="cpu")
+    step = jax.jit(lambda s: JS.sim_step(s, world, JAX_UL, dt_ms=dt,
+                                         noise_mm=0.0, dropout_p=0.0,
+                                         vision_flow=True, flow_period_ms=1))
+    rate_tol = SHIFT_TOL / (S.CAM_FOCAL * dt * 1e-3)
+    for i in range(20):
+        jst, jd = step(jst)
+        tst, td = S.sim_step(tst, tworld, UL_PROFILE, dt_ms=dt, noise_mm=0.0,
+                             dropout_p=0.0, vision_flow=True,
+                             flow_period_ms=1)
+        np.testing.assert_array_equal(td["state"].numpy(),
+                                      np.asarray(jd["state"]))
+        if i == 0:      # the camera's first frame: no rate on either side
+            assert torch.isnan(tst.vis_rate_x).all()
+            assert np.isnan(np.asarray(jst.vis_rate_x)).all()
+            continue
+        for k, tol in (("vis_rate_x", rate_tol), ("vis_rate_y", rate_tol),
+                       ("vis_q", 1)):
+            np.testing.assert_allclose(getattr(tst, k).numpy(),
+                                       np.asarray(getattr(jst, k)), rtol=0,
+                                       atol=tol, err_msg=f"tick {i} {k}")
+    assert int(tst.vis_q.min()) > 200
+    assert float(tst.vis_rate_x.abs().max()) > 0.1
